@@ -12,8 +12,9 @@ permutation, nearest neighbour by one row gather from the baked Voronoi NN
 grid; robust scale (MUSE on iteration 0, RMS after), Beaton-Tukey weights,
 strength and spatial weights with MAD normalisation, weight floor; one
 12x12 normal-equation system for the forward parameters from both
-directions (kernel K1), pseudo-inverse solve; convergence, oscillation and
-the match-count doubling schedule.
+directions (kernel K1, which also normalises the coordinates and reads
+the projector coefficients off the row tag), pseudo-inverse solve;
+convergence, oscillation and the match-count doubling schedule.
 
 Per-match tensors are component-major, [L, C, M].  The TPU-only layouts of
 the JAX package (the [V/16, 128] packed grid, `_take_rows8`, `flat_take`)
@@ -154,13 +155,6 @@ def _proj_rows_to_dir_tag(proj9: torch.Tensor, valid: torch.Tensor):
     return d, tag
 
 
-def _c1c2(tag: torch.Tensor):
-    """P = c1*I + c2*d d^T coefficients from the row tag."""
-    is_sheet = ((tag > 1.5) & (tag < 2.5)).to(tag.dtype)
-    is_tube = (tag > 2.5).to(tag.dtype)
-    return 1.0 - is_sheet, is_sheet - is_tube
-
-
 def _pack_features(fs: FeatureSet) -> torch.Tensor:
     """[N, 8] hot-loop rows (layout above)."""
     n = fs.capacity
@@ -298,7 +292,7 @@ def _sample_matches_packed(
 def _residual2_packed(trans: Affine3D, pm: PackedMatches) -> torch.Tensor:
     """e^T P e per match, [L, M]."""
     e = _apply_packed(trans, pm.fxyz) - pm.txyz
-    c1, c2 = _c1c2(pm.ttag)
+    c1, c2 = kernels.c1c2(pm.ttag)
     a = e[:, 0] ** 2 + e[:, 1] ** 2 + e[:, 2] ** 2
     b = pm.tdir[:, 0] * e[:, 0] + pm.tdir[:, 1] * e[:, 1] + pm.tdir[:, 2] * e[:, 2]
     return torch.clamp(c1 * a + c2 * b * b, min=0.0)
@@ -460,22 +454,6 @@ def _masked_mean_rows(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask[:, None, :], x, torch.zeros_like(x)).sum(-1) / n[:, None]
 
 
-def _normal_equations_packed(
-    center: torch.Tensor,  # [L, 3] normalized transform's center
-    fxyz_n: torch.Tensor,  # [L, 3, M]
-    txyz_n: torch.Tensor,
-    pdir: torch.Tensor,
-    c1: torch.Tensor,  # [L, M]
-    c2: torch.Tensor,
-    weight: torch.Tensor,
-):
-    """AtA [L, 12, 12], Atb [L, 12] through kernel K1."""
-    return kernels.normal_equations(
-        center.contiguous(), fxyz_n.contiguous(), txyz_n.contiguous(),
-        pdir.contiguous(), c1.contiguous(), c2.contiguous(), weight.contiguous(),
-    )
-
-
 def _weighted_matches_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationConfig):
     """The shared robust-weighting pipeline of estimate_LS (symmetric
     .txx:698-728).  Returns the weighted match sets and the normalisation
@@ -520,35 +498,16 @@ def _weighted_matches_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationCon
 def _estimate_ls_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationConfig):
     """Component-major estimate_LS (symmetric .txx:698-918).  Both
     directions constrain the FORWARD parameters: a backward match (fixed p
-    -> moving q) contributes forward(q) ~ p under p's projector.  The two
-    directions go to K1 as 2L lanes of one launch when their match counts
-    agree."""
+    -> moving q) contributes forward(q) ~ p under p's projector.  K1 takes
+    the weighted match sets as they are (un-normalised, each direction with
+    its own match count) with the frame, and returns the summed system."""
     fwd, bwd, cm, cf, rm, rf = _weighted_matches_packed(trans, fwd, bwd, use_muse, cfg)
-
-    def norm_m(x):
-        return (x - cm[:, :, None]) / rm[:, None, None]
-
-    def norm_f(x):
-        return (x - cf[:, :, None]) / rf[:, None, None]
-
     trans_n = trans.normalize(rm, rf, cm, cf)
-    c1_f, c2_f = _c1c2(fwd.ttag)
-    c1_b, c2_b = _c1c2(bwd.ftag)
-    args_f = (trans_n.center, norm_m(fwd.fxyz), norm_f(fwd.txyz), fwd.tdir,
-              c1_f, c2_f, fwd.weight)
-    args_b = (trans_n.center, norm_m(bwd.txyz), norm_f(bwd.fxyz), bwd.fdir,
-              c1_b, c2_b, bwd.weight)
-    L = rm.shape[0]
-    if fwd.weight.shape == bwd.weight.shape:
-        AtA2, Atb2 = _normal_equations_packed(
-            *[torch.cat([a, b]) for a, b in zip(args_f, args_b)]
-        )
-        AtA = AtA2[:L] + AtA2[L:]
-        Atb = Atb2[:L] + Atb2[L:]
-    else:
-        AtA_f, Atb_f = _normal_equations_packed(*args_f)
-        AtA_b, Atb_b = _normal_equations_packed(*args_b)
-        AtA, Atb = AtA_f + AtA_b, Atb_f + Atb_b
+    AtA, Atb = kernels.normal_equations_sym(
+        (fwd.fxyz, fwd.txyz, fwd.tdir, fwd.ttag, fwd.weight),
+        (bwd.txyz, bwd.fxyz, bwd.fdir, bwd.ftag, bwd.weight),
+        cm, cf, rm, rf, trans_n.center,
+    )
 
     cov_n = pinv_hermitian(AtA)
     theta = (cov_n * Atb[:, None, :]).sum(-1)

@@ -1,21 +1,23 @@
 """The port's two hand-written Hopper kernels and their plain versions.
 
-  K1 `normal_equations` — batched weighted Gauss-Newton system of the affine
-     ICP (replaces lrr_tpu/ops/pallas_kernels.py::normal_equations_pallas and
-     the XLA form in lrr_tpu/estimation/icp.py::_normal_equations_packed);
-     source csrc/normal_equations.cu.
+  K1 `normal_equations_sym` — the summed weighted Gauss-Newton system of the
+     affine ICP over both match directions, with the coordinate
+     normalisation inside (replaces
+     lrr_tpu/ops/pallas_kernels.py::normal_equations_pallas, the XLA form in
+     lrr_tpu/estimation/icp.py::_normal_equations_packed and the elementwise
+     work XLA fused around it); source csrc/normal_equations.cu.
   K2 `knn` — exact k-NN by squared L2 with a running top-k (replaces
      lrr_tpu/ops/pallas_kernels.py::knn_pallas); source csrc/knn.cu.
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  `LAUNCHES` counts kernel
 launches (never plain-version calls) so a run can show that its path went
-through the kernels.
+through the kernels; `K1_SHAPES` logs which shapes K1 was launched at.
 """
 
 from __future__ import annotations
 
-import functools
+import ctypes
 
 import torch
 
@@ -24,19 +26,21 @@ from lrr_tpu_torch.ops import native
 KMAX = 128  # largest k the k-NN kernel keeps (the TPU kernel's lane width)
 
 LAUNCHES = {"normal_equations": 0, "knn": 0}
+K1_SHAPES: dict[tuple[int, int, int], int] = {}  # (L, M_f, M_b) -> launches
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    K1_SHAPES.clear()
 
 
-def _check_cuda(name: str, dtype, device, *tensors) -> None:
+def _check_cuda(name: str, dtype, device, *tensors, contiguous: bool = True) -> None:
     for t in tensors:
-        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        if t.device != device or t.dtype != dtype or (contiguous and not t.is_contiguous()):
             raise ValueError(
-                f"{name}: expected contiguous {dtype} tensors on {device}, got "
-                f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+                f"{name}: expected {'contiguous ' if contiguous else ''}{dtype} tensors "
+                f"on {device}, got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
             )
 
 
@@ -44,16 +48,13 @@ def _check_cuda(name: str, dtype, device, *tensors) -> None:
 # K1: normal equations
 # ---------------------------------------------------------------------------
 
-# packed upper-triangle position of (n, n') for the kernel's [L, 90] output
-_TRIU = [(n, nn) for n in range(12) for nn in range(n, 12)]
-_PACKED_INDEX = [_TRIU.index((min(r, s), max(r, s))) for r in range(12) for s in range(12)]
 
-
-@functools.lru_cache(maxsize=None)
-def _packed_index(device: torch.device) -> torch.Tensor:
-    """The unpacking index on `device`, copied there once: a copy from host
-    memory per launch could stall the host on the stream."""
-    return torch.tensor(_PACKED_INDEX, device=device)
+def c1c2(tag: torch.Tensor):
+    """P = c1*I + c2*d d^T coefficients from the hot-loop row tag (0 =
+    invalid, 1 = corner, 2 = sheet, 3 = tube)."""
+    is_sheet = ((tag > 1.5) & (tag < 2.5)).to(tag.dtype)
+    is_tube = (tag > 2.5).to(tag.dtype)
+    return 1.0 - is_sheet, is_sheet - is_tube
 
 
 def normal_equations_plain(
@@ -65,9 +66,9 @@ def normal_equations_plain(
     c2: torch.Tensor,  # [L, M]
     w: torch.Tensor,  # [L, M]
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """AtA [L, 12, 12], Atb [L, 12] as G^T G and G^T y with
-    G[(i, m), 4k+l] = sqrt(w_m) P_m[i, k] h_m[l] (the JAX package's
-    `_normal_equations_packed`, batched over lanes)."""
+    """One direction, already normalised: AtA [L, 12, 12], Atb [L, 12] as
+    G^T G and G^T y with G[(i, m), 4k+l] = sqrt(w_m) P_m[i, k] h_m[l] (the
+    JAX package's `_normal_equations_packed`, batched over lanes)."""
     L, _, M = fxyz.shape
     sw = torch.sqrt(torch.clamp(w, min=0.0))
     xc = fxyz - center[:, :, None]
@@ -93,46 +94,87 @@ def normal_equations_plain(
     return AtA, Atb
 
 
-def normal_equations(
-    center: torch.Tensor,
-    fxyz: torch.Tensor,
-    txyz: torch.Tensor,
-    pdir: torch.Tensor,
-    c1: torch.Tensor,
-    c2: torch.Tensor,
-    w: torch.Tensor,
+# One direction's matches for K1: (from-points [L, 3, M], to-points
+# [L, 3, M], projector direction [L, 3, M], tag [L, M], weight [L, M]).
+Direction = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def normal_equations_sym_plain(
+    fwd: Direction,
+    bwd: Direction,
+    cm: torch.Tensor,  # [L, 3] center of the from-side (moving) frame
+    cf: torch.Tensor,  # [L, 3] center of the to-side (fixed) frame
+    rm: torch.Tensor,  # [L] radius of the from-side frame
+    rf: torch.Tensor,  # [L] radius of the to-side frame
+    center: torch.Tensor,  # [L, 3] the normalised transform's center
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1.  Shapes as `normal_equations_plain`; float32 throughout."""
-    if fxyz.device.type == "cpu":
-        return normal_equations_plain(center, fxyz, txyz, pdir, c1, c2, w)
-    if fxyz.device.type != "cuda":
-        raise ValueError(f"normal_equations: unsupported device {fxyz.device}")
-    L, three, M = fxyz.shape
-    if three != 3 or center.shape != (L, 3):
-        raise ValueError(f"normal_equations: bad shapes {center.shape} {fxyz.shape}")
-    for t in (txyz, pdir):
-        if t.shape != (L, 3, M):
-            raise ValueError(f"normal_equations: bad shape {t.shape}")
-    for t in (c1, c2, w):
-        if t.shape != (L, M):
-            raise ValueError(f"normal_equations: bad shape {t.shape}")
-    _check_cuda("normal_equations", torch.float32, fxyz.device,
-                center, fxyz, txyz, pdir, c1, c2, w)
-    out = torch.empty((L, 90), dtype=torch.float32, device=fxyz.device)
+    """Plain PyTorch composition of K1: per direction normalise the points
+    ((x - c) / r), take (c1, c2) from the tag, form the system
+    (`normal_equations_plain`), then add the two directions."""
+    total = None
+    for from_xyz, to_xyz, pdir, tag, w in (fwd, bwd):
+        from_n = (from_xyz - cm[:, :, None]) / rm[:, None, None]
+        to_n = (to_xyz - cf[:, :, None]) / rf[:, None, None]
+        c1, c2 = c1c2(tag)
+        part = normal_equations_plain(center, from_n, to_n, pdir, c1, c2, w)
+        total = part if total is None else (total[0] + part[0], total[1] + part[1])
+    return total
+
+
+def normal_equations_sym(
+    fwd: Direction,
+    bwd: Direction,
+    cm: torch.Tensor,
+    cf: torch.Tensor,
+    rm: torch.Tensor,
+    rf: torch.Tensor,
+    center: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1.  Arguments as `normal_equations_sym_plain`, float32 throughout;
+    the two directions may hold different match counts.  The per-match
+    tensors may be strided views (the ICP's row gathers are read in place);
+    the frame tensors must be contiguous.  Returns AtA [L, 12, 12] (full,
+    symmetric) and Atb [L, 12]."""
+    dev = cm.device
+    if dev.type == "cpu":
+        return normal_equations_sym_plain(fwd, bwd, cm, cf, rm, rf, center)
+    if dev.type != "cuda":
+        raise ValueError(f"normal_equations_sym: unsupported device {dev}")
+    L = cm.shape[0]
+    for t, shape in ((cm, (L, 3)), (cf, (L, 3)), (center, (L, 3)), (rm, (L,)), (rf, (L,))):
+        if t.shape != shape:
+            raise ValueError(f"normal_equations_sym: frame shape {tuple(t.shape)}, want {shape}")
+    _check_cuda("normal_equations_sym", torch.float32, dev, cm, cf, rm, rf, center)
+    pointers, strides, counts = [], [], []
+    for direction in (fwd, bwd):
+        if len(direction) != 5:
+            raise ValueError("normal_equations_sym: a direction is (from, to, dir, tag, w)")
+        M = direction[4].shape[-1]
+        for t in direction[:3]:
+            if t.shape != (L, 3, M):
+                raise ValueError(f"normal_equations_sym: shape {tuple(t.shape)}, want {(L, 3, M)}")
+        for t in direction[3:]:
+            if t.shape != (L, M):
+                raise ValueError(f"normal_equations_sym: shape {tuple(t.shape)}, want {(L, M)}")
+        _check_cuda("normal_equations_sym", torch.float32, dev, *direction, contiguous=False)
+        pointers += [t.data_ptr() for t in direction]
+        strides += [s for t in direction for s in t.stride()]
+        counts.append(M)
+    AtA = torch.empty((L, 12, 12), dtype=torch.float32, device=dev)
+    Atb = torch.empty((L, 12), dtype=torch.float32, device=dev)
     if L > 0:
-        lib = native.library()
+        pointers += [t.data_ptr() for t in (cm, cf, rm, rf, center, AtA, Atb)]
         native.check(
-            lib.lrr_normal_equations(
-                center.data_ptr(), fxyz.data_ptr(), txyz.data_ptr(),
-                pdir.data_ptr(), c1.data_ptr(), c2.data_ptr(), w.data_ptr(),
-                out.data_ptr(), L, M,
-                torch.cuda.current_stream(fxyz.device).cuda_stream,
+            native.library().lrr_normal_equations_sym(
+                (ctypes.c_void_p * 17)(*pointers), (ctypes.c_longlong * 26)(*strides),
+                L, counts[0], counts[1], torch.cuda.current_stream(dev).cuda_stream,
             ),
-            "normal_equations",
+            "normal_equations_sym",
         )
         LAUNCHES["normal_equations"] += 1
-    AtA = out[:, _packed_index(out.device)].reshape(L, 12, 12)
-    return AtA, out[:, 78:]
+        shape = (L, counts[0], counts[1])
+        K1_SHAPES[shape] = K1_SHAPES.get(shape, 0) + 1
+    return AtA, Atb
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +205,31 @@ def knn_plain(
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
 
 
+_SMEM_LIMIT = 227 * 1024  # dynamic shared memory one block may take on sm_90
+_WIDE_MIN_TILES = 64  # 64 x 64 tiles from which K2 takes its wide tile shape
+
+
+def knn_plan(Q: int, N: int, D: int, k: int, device) -> tuple[int, int]:
+    """(wide, splits) for K2: wide 64 x 64 tiles from `_WIDE_MIN_TILES` full
+    ones on (where the two shapes were measured to cross, 512 x 512 on an
+    H100), else narrow 16 x 16 ones; then as many point splits as keep one
+    wave of resident blocks (never more than there are point tiles)."""
+    lib = native.library()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    wide = int((Q // 64) * (N // 64) >= _WIDE_MIN_TILES)
+    if wide and lib.lrr_knn_smem_bytes(D, k, 1) > _SMEM_LIMIT:
+        wide = 0
+    smem = lib.lrr_knn_smem_bytes(D, k, wide)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"knn: D={D}, k={k} too wide for the shared-memory tiles")
+    tile, threads = (64, 256) if wide else (16, 128)
+    resident = sms * max(1, min(_SMEM_LIMIT // smem, 2048 // threads, 32))
+    q_tiles, p_tiles = -(-Q // tile), max(1, -(-N // tile))
+    splits = max(1, min(p_tiles, resident // q_tiles))
+    per_split = -(-p_tiles // splits)
+    return wide, -(-p_tiles // per_split)
+
+
 def knn(
     queries: torch.Tensor, points: torch.Tensor, mask: torch.Tensor, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -177,19 +244,21 @@ def knn(
     N = points.shape[0]
     if points.shape != (N, D) or mask.shape != (N,):
         raise ValueError(f"knn: bad shapes {queries.shape} {points.shape} {mask.shape}")
-    if (8 + 32) * (D | 1) * 4 > 227 * 1024:
-        raise ValueError(f"knn: D={D} too wide for the shared-memory tiles")
-    _check_cuda("knn", torch.float32, queries.device, queries, points)
-    _check_cuda("knn", torch.bool, queries.device, mask)
-    d = torch.empty((Q, k), dtype=torch.float32, device=queries.device)
-    i = torch.empty((Q, k), dtype=torch.int32, device=queries.device)
+    dev = queries.device
+    _check_cuda("knn", torch.float32, dev, queries, points)
+    _check_cuda("knn", torch.bool, dev, mask)
+    d = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q > 0:
-        lib = native.library()
+        wide, splits = knn_plan(Q, N, D, k, dev)
+        # the splits' lists, merged by the kernel's second pass
+        part_d = torch.empty((Q, splits, k), dtype=torch.float32, device=dev) if splits > 1 else d
+        part_i = torch.empty((Q, splits, k), dtype=torch.int32, device=dev) if splits > 1 else i
         native.check(
-            lib.lrr_knn(
+            native.library().lrr_knn(
                 queries.data_ptr(), points.data_ptr(), mask.data_ptr(),
-                d.data_ptr(), i.data_ptr(), Q, N, D, k,
-                torch.cuda.current_stream(queries.device).cuda_stream,
+                d.data_ptr(), i.data_ptr(), part_d.data_ptr(), part_i.data_ptr(),
+                Q, N, D, k, wide, splits, torch.cuda.current_stream(dev).cuda_stream,
             ),
             "knn",
         )

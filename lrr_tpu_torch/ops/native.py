@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (lrr_tpu_torch/csrc/*.cu).
 
-The sources are compiled with `nvcc` for `sm_90a` into one shared library
-with a plain C interface, at first use, into `build/lrr_tpu_torch/` at the
-repo root, named by a hash of the sources and flags (a changed source
-rebuilds).  The library is loaded with ctypes; each C entry point launches
-on the stream it is given and returns `cudaGetLastError()`.
+Each source is compiled with `nvcc` for `sm_90a` into its own shared
+library with a plain C interface, at first use, into `build/lrr_tpu_torch/`
+at the repo root; the compilers of all sources run side by side.  A library
+is named by a hash of its source and the flags (a changed source rebuilds).
+The libraries are loaded with ctypes; each C entry point launches on the
+stream it is given and returns `cudaGetLastError()`.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine-independent module only builds when a CUDA tensor reaches a kernel.
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 import time
+import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -32,10 +34,19 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # center, fxyz, txyz, pdir, c1, c2, w, out, L, M, stream
-    "lrr_normal_equations": [_P] * 8 + [_I, _I, _P],
-    # queries, points, mask, out_d, out_i, Q, N, D, k, stream
-    "lrr_knn": [_P] * 5 + [_I, _I, _I, _I, _P],
+    # pointers (host array of 17 device pointers), strides (host array of
+    # 26 element strides), L, M_f, M_b, stream
+    "lrr_normal_equations_sym": [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
+        _I, _I, _I, _P,
+    ],
+    # queries, points, mask, out_d, out_i, part_d, part_i, Q, N, D, k,
+    # wide tiles (0/1), point splits, stream
+    "lrr_knn": [_P] * 7 + [_I] * 6 + [_P],
+    # D, k, wide tiles (0/1) -> shared-memory bytes of one K2 block
+    "lrr_knn_smem_bytes": [_I, _I, _I],
+    # stream: an empty kernel, for the launch floor
+    "lrr_empty": [_P],
 }
 
 
@@ -46,49 +57,73 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> str:
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def library_path(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
-        with open(s, "rb") as f:
-            h.update(os.path.basename(s).encode() + f.read())
-    return os.path.join(BUILD_DIR, f"liblrr_kernels_{h.hexdigest()[:16]}.so")
+    with open(source, "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"liblrr_{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> tuple[str, float]:
-    """Compile the kernel library if its hash is not built yet.  Returns
-    (path, seconds spent compiling; 0.0 when it was already built).  The
-    compiler's register/spill report is kept beside it as `<lib>.log`."""
-    out = library_path()
-    if os.path.exists(out):
-        return out, 0.0
+def build() -> tuple[list[str], float]:
+    """Compile every kernel library whose hash is not built yet, all at
+    once.  Returns (paths, seconds spent compiling; 0.0 when all were
+    built).  The compiler's register/spill report of each is kept beside it
+    as `<lib>.log`."""
+    paths = [library_path(s) for s in sources()]
+    todo = [(s, p) for s, p in zip(sources(), paths) if not os.path.exists(p)]
+    if not todo:
+        return paths, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    tmp = f"{out}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
-    return out, seconds
+    procs = [
+        (out, f"{out}.{os.getpid()}.tmp",
+         subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", f"{out}.{os.getpid()}.tmp", src],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src, out in todo
+    ]
+    failures = []
+    for out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        with open(out + ".log", "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}) for {out}:\n{log[-4000:]}")
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return paths, time.perf_counter() - t0
+
+
+def build_logs() -> dict[str, str]:
+    """The kept compiler report of each built library, by source stem."""
+    logs = {}
+    for s in sources():
+        path = library_path(s) + ".log"
+        if os.path.exists(path):
+            with open(path) as f:
+                logs[os.path.splitext(os.path.basename(s))[0]] = f.read()
+    return logs
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    path, _ = build()
-    lib = ctypes.CDLL(path)
+def library() -> types.SimpleNamespace:
+    """The loaded kernel entry points (built on first call)."""
+    paths, _ = build()
+    libs = [ctypes.CDLL(p) for p in paths]
+    fns = types.SimpleNamespace(_libs=libs)  # keeps the libraries loaded
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+        setattr(fns, name, fn)
+    return fns
 
 
 def check(err: int, name: str) -> None:

@@ -21,7 +21,18 @@ from lrr_tpu_torch.types import DescriptorSet, FeatureSet, KeypointSet
 _VERSION = 1
 
 
-def load_pair_context(path: str, device) -> PairContext:
+def load_pair_context(path: str, device=None) -> PairContext:
+    """The pair context on `device`.  `None` means the CUDA card: it raises
+    where there is none and never carries on on the CPU by itself (a caller
+    that wants the CPU, as the tests do, says "cpu")."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "load_pair_context: no CUDA device; lrr_tpu_torch runs on the GPU "
+                'unless the caller asks for the CPU (pass device="cpu")'
+            )
+        device = "cuda"
+    device = torch.device(device)
     with np.load(path) as z:
         if int(z["version"]) != _VERSION:
             raise ValueError(f"artifact version mismatch in {path}")

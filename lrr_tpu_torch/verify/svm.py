@@ -118,11 +118,11 @@ def parse_libsvm_model(text: str) -> SvmModel:
     )
 
 
-# The shipped verifier, read in place from the JAX package's data (a text
-# file; nothing of that package is imported).
+# The shipped verifier: the port's own copy of lrr_tpu's trained model file
+# (a test holds the two byte-equal).
 DEFAULT_MODEL_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "lrr_tpu", "data", "verifier_default.model",
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "data", "verifier_default.model",
 )
 
 

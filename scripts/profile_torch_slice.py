@@ -6,9 +6,14 @@ through `register_locations_staged` once to warm up, then once under
 the timed window, device time by kernel name, and host time by operator.
 
     python3 scripts/profile_torch_slice.py [--out chiprun_out/profile] [--seed N]
+                                           [--runs N] [--root DIR]
 
 Writes `<out>/summary.json`. No Chrome trace is exported: a trace of the
-~45k launches would be too large to keep.
+~45k launches would be too large to keep.  `--runs N` adds N served runs
+without the profiler, each on its own draws, and reports their wall times
+(`run_s`).  `--root DIR` profiles the `lrr_tpu_torch` package of another
+checkout (an earlier commit unpacked with `git archive`) on this one's bench
+context, so two commits can be held side by side on one card in one run.
 """
 
 from __future__ import annotations
@@ -31,7 +36,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile"))
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--runs", type=int, default=0)
+    ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice: needs a CUDA GPU")
     from torch.profiler import ProfilerActivity, profile
@@ -51,8 +59,8 @@ def main() -> None:
     with open(base + ".json") as f:
         meta = json.load(f)
     cfg = pipeline_config_from_dict(meta["config"])
-    dev = torch.device("cuda", 0)
-    ctx = load_pair_context(base + ".npz", dev)
+    ctx = load_pair_context(base + ".npz", torch.device("cuda"))
+    dev = ctx.moving_features.xyz.device
     svm = load_default_verifier()
     q = torch.tensor(np.asarray(meta["queries"], np.float32), device=dev)
 
@@ -67,10 +75,14 @@ def main() -> None:
         return out, time.perf_counter() - t0
 
     serve(0)
+    run_s = [serve(100 + r)[1] for r in range(args.runs)]
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = serve(1)
     launches = dict(kernels.LAUNCHES)
+    k1_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "normal_equations" in e.name) / 1e3
 
     os.makedirs(args.out, exist_ok=True)
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -96,10 +108,14 @@ def main() -> None:
         key=lambda a: -a.self_cpu_time_total,
     )[:20]
     summary = {
-        "card": card, "queries": len(q), "wall_s": wall,
+        "card": card, "root": os.path.abspath(args.root), "queries": len(q), "run_s": run_s,
+        "wall_s": wall,
         "locations_per_s": len(q) / wall,
         "device_busy_s": busy / 1e6, "device_busy_share": busy / 1e6 / wall,
-        "device_kernels": len(events), "launches": launches,
+        "device_kernels": len(events), "launches": launches, "k1_device_ms": k1_ms,
+        "k1_shapes": [{"L": k[0], "M_f": k[1], "M_b": k[2], "launches": n}
+                      for k, n in sorted(getattr(kernels, "K1_SHAPES", {}).items(),
+                                         key=lambda kv: -kv[1])],
         "device_time_by_kernel_ms": {n: {"ms": v[0] / 1e3, "calls": v[1]} for n, v in top_dev},
         "host_self_time_by_op_ms": {
             a.key: {"ms": a.self_cpu_time_total / 1e3, "calls": a.count} for a in host_ops
@@ -108,8 +124,8 @@ def main() -> None:
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({k: summary[k] for k in (
-        "card", "wall_s", "locations_per_s", "device_busy_s", "device_busy_share",
-        "device_kernels", "launches")}))
+        "card", "root", "run_s", "wall_s", "locations_per_s", "device_busy_s", "device_busy_share",
+        "device_kernels", "launches", "k1_device_ms", "k1_shapes")}))
     for n, v in top_dev[:12]:
         print(f"# device {v[0] / 1e3:9.3f} ms {v[1]:6d}x  {n[:100]}")
     for a in host_ops[:12]:

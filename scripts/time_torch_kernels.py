@@ -1,0 +1,87 @@
+"""Time the PyTorch port's CUDA kernels alone, on one NVIDIA GPU.
+
+    python3 scripts/time_torch_kernels.py [--root DIR] [--seed N]
+
+`--root` names the checkout whose `lrr_tpu_torch` package is timed (default:
+this one), so two commits can be timed by the same method on the same card in
+one run: unpack the other commit with `git archive` into a git-ignored
+directory and pass that directory.  The method is `chip_smoke.Timer`'s of
+this checkout: CUDA events around one call queued behind a spinning kernel,
+median of 20, with the inputs flushed from L2 (`cold_us`) or not (`warm_us`).
+
+K1 is timed through whichever entry point the checkout has: the symmetric
+`normal_equations_sym` (both directions, un-normalised, L lanes) or the
+earlier single-direction `normal_equations` (the two directions as 2L lanes
+of normalised points); both read the same number of matches.  Prints one
+JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_torch_kernels: needs a CUDA GPU")
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs  # the timing method and the input makers
+
+    sys.path.insert(0, os.path.abspath(args.root))
+    from lrr_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    timer = cs.Timer(dev)
+    rng = np.random.default_rng(args.seed)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+    def both(fn):
+        return {"cold_us": 1e3 * timer.ms(fn), "warm_us": 1e3 * timer.ms(fn, cold=False)}
+
+    out = {"card": card, "root": os.path.abspath(args.root), "k1": {}, "k2": {}}
+    for L, M in [(64, 1024), (64, 2048), (64, 4096)]:
+        fwd, bwd = cs.k1_direction(rng, L, M, dev), cs.k1_direction(rng, L, M, dev)
+        frame = cs.k1_frame(rng, L, dev)
+        if hasattr(kernels, "normal_equations_sym"):
+            fwd_r, bwd_r = cs.as_row_views(fwd), cs.as_row_views(bwd)
+            out["k1"][f"{L}x{M}x{M}"] = {
+                "entry": "normal_equations_sym",
+                "planar": both(lambda: kernels.normal_equations_sym(fwd, bwd, *frame)),
+                "rows": both(lambda: kernels.normal_equations_sym(fwd_r, bwd_r, *frame)),
+            }
+        else:
+            cat = [torch.cat([a, b]).contiguous() for a, b in zip(fwd, bwd)]
+            center = torch.cat([frame[4], frame[4]])
+            c1 = (cat[3] != 2).float()
+            c2 = (cat[3] == 2).float() - (cat[3] == 3).float()
+            out["k1"][f"{L}x{M}x{M}"] = {
+                "entry": "normal_equations (2L lanes)",
+                "planar": both(lambda: kernels.normal_equations(
+                    center, cat[0], cat[1], cat[2], c1, c2, cat[4])),
+            }
+    for Q, N, k in [(128, 128, 1), (200, 700, 20), (4096, 4096, 1), (4096, 4096, 20)]:
+        q = torch.tensor(rng.standard_normal((Q, 195)), dtype=torch.float32, device=dev)
+        p = torch.tensor(rng.standard_normal((N, 195)), dtype=torch.float32, device=dev)
+        mask = torch.tensor(rng.uniform(size=N) > 0.15, device=dev)
+        out["k2"][f"{Q}x{N}x195_k{k}"] = both(lambda: kernels.knn(q, p, mask, k))
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

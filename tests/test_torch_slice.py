@@ -4,6 +4,7 @@ committed small pair context, with the draws lrr_tpu makes."""
 
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -130,21 +131,46 @@ def test_kernel_wrappers_refuse_other_devices():
     device launches the kernel (CUDA) or raises."""
     x = torch.zeros((1, 3, 4), device="meta")
     w = torch.zeros((1, 4), device="meta")
+    c = torch.zeros((1, 3), device="meta")
+    r = torch.ones(1, device="meta")
     with pytest.raises(ValueError):
-        kernels.normal_equations(torch.zeros((1, 3), device="meta"), x, x, x, w, w, w)
+        kernels.normal_equations_sym((x, x, x, w, w), (x, x, x, w, w), c, c, r, r, c)
     with pytest.raises(ValueError):
         kernels.knn(torch.zeros((2, 16), device="meta"), torch.zeros((3, 16), device="meta"),
                     torch.ones(3, dtype=torch.bool, device="meta"), 1)
 
 
 def test_port_imports_no_jax():
+    """The port and its smoke script import neither jax nor lrr_tpu, and
+    open no file under lrr_tpu/ (the shipped verifier is the port's own)."""
     code = (
-        "import sys, lrr_tpu_torch.pipeline.registration, lrr_tpu_torch.pipeline.artifacts; "
+        "import builtins, os, sys\n"
+        "opened = []\n"
+        "real_open = builtins.open\n"
+        "def spy(path, *a, **k):\n"
+        "    opened.append(os.path.abspath(str(path)))\n"
+        "    return real_open(path, *a, **k)\n"
+        "builtins.open = spy\n"
+        "import lrr_tpu_torch.pipeline.registration, lrr_tpu_torch.pipeline.artifacts\n"
+        "import chip_smoke\n"
+        "from lrr_tpu_torch.verify.svm import load_default_verifier\n"
+        "load_default_verifier()\n"
         "assert 'jax' not in sys.modules and 'lrr_tpu' not in sys.modules, "
-        "sorted(m for m in sys.modules if m.startswith(('jax', 'lrr_tpu.')))"
+        "sorted(m for m in sys.modules if m.startswith(('jax', 'lrr_tpu.')))\n"
+        "inside = [p for p in opened if 'lrr_tpu' in p.split(os.sep)]\n"
+        "assert not inside, inside\n"
+        "assert any(p.endswith('verifier_default.model') for p in opened)\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
+    # and no source of the port names that directory as a path component
+    sources = [os.path.join(root, "chip_smoke.py")]
+    for folder, _, files in os.walk(os.path.join(root, "lrr_tpu_torch")):
+        sources += [os.path.join(folder, f) for f in files if f.endswith((".py", ".cu"))]
+    pattern = re.compile(r"""["']lrr_tpu["']""")
+    for path in sources:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path
 
 
 def test_register_locations_staged_matches_lrr_tpu():
