@@ -17,7 +17,19 @@ Phases, one line each; any failure raises and exits non-zero:
               its 64 queries: one warm-up and three timed runs, acceptance
               held against lrr_tpu's recorded result for that context, the
               kernels' launch counts over the whole run (both > 0) and the
-              shapes the run gave K1.
+              shapes the run gave K1;
+  5. stage1_bench      the same 64^3 pair from the port's own stage 1: the
+              port's `make_pair` and `prepare_pair` (no file prepared by
+              lrr_tpu), seconds per stage, counts, the agreement of its
+              features with the committed context's, and the 64 queries
+              served with phase 4's acceptance bounds;
+  6. stage1_reference  stage 1 alone at the reference constants: a dense
+              400 x 350 x 350 phantom pair, 65,536 features and 4,096
+              keypoints a volume; seconds per stage, counts, map shapes,
+              peak memory, feature repeatability under the true transform,
+              K2's launch at 4096 x 4096 x 195 inside `prepare_pair`, the
+              two exact Voronoi builds against each other, and two runs
+              of `detect_features` bit for bit.
 Then a JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -297,31 +309,32 @@ def acceptance_stats(out, queries: np.ndarray, true) -> dict:
     }
 
 
-def run_slice(seed: int, card: str):
+def load_bench_meta():
     from lrr_tpu_torch.config import pipeline_config_from_dict
+
+    with open(BENCH + ".json") as f:
+        meta = json.load(f)
+    return meta, pipeline_config_from_dict(meta["config"])
+
+
+def k2_shape_rows(shapes: dict) -> list[dict]:
+    return [{"Q": k[0], "N": k[1], "D": k[2], "k": k[3], "launches": n} for k, n in shapes.items()]
+
+
+def serve_and_check(label: str, ctx, cfg, meta, seed: int, card: str, **fields):
+    """Serve the bench queries on `ctx` (one warm-up, three timed runs), print
+    the phase line, and hold launches and acceptance to their bounds.  The
+    caller set the launch counts to 0 before it made the context."""
     from lrr_tpu_torch.models.affine import Affine3D
     from lrr_tpu_torch.ops import kernels
-    from lrr_tpu_torch.pipeline.artifacts import load_pair_context
     from lrr_tpu_torch.pipeline.registration import register_locations_staged
     from lrr_tpu_torch.sampling import draw_sampling_plan
     from lrr_tpu_torch.verify.svm import load_default_verifier
 
-    with open(BENCH + ".json") as f:
-        meta = json.load(f)
-    cfg = pipeline_config_from_dict(meta["config"])
-    queries = np.asarray(meta["queries"], np.float32)
-
-    # the main path, counted: context load (descriptor-NN table) + serving.
-    # No device is named: the port's entry point takes the card by itself.
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    ctx = load_pair_context(BENCH + ".npz")
     dev = ctx.device
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
+    queries = np.asarray(meta["queries"], np.float32)
     true = Affine3D(*(torch.tensor(meta["true"][k], device=dev) for k in ("A", "t", "center")))
     ref = meta["lrr_tpu_reference"]
-
     svm = load_default_verifier()
     q = torch.as_tensor(queries, device=dev)
 
@@ -347,31 +360,265 @@ def run_slice(seed: int, card: str):
     k1_shapes = sorted(kernels.K1_SHAPES.items(), key=lambda kv: -kv[1])
 
     acc = acceptance_stats(out, queries, true)
-    best = min(times)
     rec = {
-        "card": card, "queries": len(queries), "load_s": load_s, "warmup_s": warm_s,
-        "run_s": times, "locations_per_s": len(queries) / best,
+        "card": card, "queries": len(queries), **fields, "warmup_s": warm_s,
+        "run_s": times, "locations_per_s": len(queries) / min(times),
         "locations_per_s_median": len(queries) / statistics.median(times),
         **acc, "launches": launches,
         "k1_launches_last_run": launches["normal_equations"] - before,
         "k1_shapes": [{"L": k[0], "M_f": k[1], "M_b": k[2], "launches": n} for k, n in k1_shapes],
+        "k2_shapes": k2_shape_rows(kernels.K2_SHAPES),
         "lrr_tpu_reference": {k: ref[k] for k in ("verified_frac", "rank0_frac",
                                                    "median_gt_error_mm")},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    phase("slice", **rec)
+    phase(label, **rec)
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"kernel {name} was never launched on the main path")
+            raise AssertionError(f"{label}: kernel {name} was never launched on the main path")
     slack = 2.0 / len(queries)
     if acc["verified_frac"] < ref["verified_frac"] - slack:
-        raise AssertionError(f"verified_frac {acc['verified_frac']} below {ref['verified_frac']}")
+        raise AssertionError(f"{label}: verified_frac {acc['verified_frac']} below {ref['verified_frac']}")
     if acc["rank0_frac"] < ref["rank0_frac"] - slack:
-        raise AssertionError(f"rank0_frac {acc['rank0_frac']} below {ref['rank0_frac']}")
+        raise AssertionError(f"{label}: rank0_frac {acc['rank0_frac']} below {ref['rank0_frac']}")
     err_cap = max(1.0, 1.5 * ref["median_gt_error_mm"])
     if acc["median_gt_error_mm"] is None or acc["median_gt_error_mm"] > err_cap:
-        raise AssertionError(f"median_gt_error_mm {acc['median_gt_error_mm']} above {err_cap}")
+        raise AssertionError(f"{label}: median_gt_error_mm {acc['median_gt_error_mm']} above {err_cap}")
     return launches, k1_shapes[0][0]
+
+
+def run_slice(seed: int, card: str):
+    """Phase 4: the committed bench context, loaded and served."""
+    from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.pipeline.artifacts import load_pair_context
+
+    meta, cfg = load_bench_meta()
+    # the main path, counted: context load (descriptor-NN table) + serving.
+    # No device is named: the port's entry point takes the card by itself.
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ctx = load_pair_context(BENCH + ".npz")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    return serve_and_check("slice", ctx, cfg, meta, seed, card, load_s=load_s)
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: stage 1
+# ---------------------------------------------------------------------------
+
+STAGES = ("detect_features", "extract_keypoints", "compute_descriptors",
+          "build_feature_voronoi", "descriptor_nn_table", "bake_target_grid")
+
+
+def timed_prepare_pair(moving, fixed, cfg):
+    """`prepare_pair` through its entry point, with the stage functions it
+    calls wrapped so that each call is ended by a synchronise and timed:
+    (context, {stage: [seconds per call]}, keypoints found per volume);
+    calls run moving first."""
+    from lrr_tpu_torch.pipeline import registration
+
+    seconds = {name: [] for name in STAGES}
+    keypoints = []
+    originals = {name: getattr(registration, name) for name in STAGES}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            if name == "extract_keypoints":
+                keypoints.append(int(out.count()))
+            return out
+        return call
+
+    for name in STAGES:
+        setattr(registration, name, timed(name))
+    try:
+        t0 = time.perf_counter()
+        ctx = registration.prepare_pair(moving, fixed, cfg)
+        torch.cuda.synchronize()
+        seconds["prepare_pair"] = [time.perf_counter() - t0]
+    finally:
+        for name, fn in originals.items():
+            setattr(registration, name, fn)
+    return ctx, seconds, keypoints
+
+
+def context_counts(ctx, keypoints: list[int]) -> dict:
+    """[moving, fixed] counts of a prepared context."""
+    return {
+        "features": [int(ctx.moving_features.count()), int(ctx.fixed_features.count())],
+        "keypoints": keypoints,
+        "valid_descriptors": [int(ctx.moving_descriptors.keypoints.count()),
+                              int(ctx.fixed_descriptors.keypoints.count())],
+        "map_shapes": [list(ctx.moving_vor.index_vol.shape), list(ctx.fixed_vor.index_vol.shape)],
+    }
+
+
+def nearest_valid(queries: torch.Tensor, points: torch.Tensor, mask: torch.Tensor):
+    """(distance [Q], index [Q]) of the nearest valid point, chunked over
+    the queries (component-wise differences)."""
+    far = torch.where(mask[:, None], points, torch.full_like(points, 1e18))
+    dist, idx = [], []
+    for q0 in range(0, queries.shape[0], 4096):
+        q = queries[q0 : q0 + 4096]
+        d2 = sum((q[:, c, None] - far[None, :, c]) ** 2 for c in range(3))
+        m = d2.min(1)
+        dist.append(torch.sqrt(m.values))
+        idx.append(m.indices)
+    return torch.cat(dist), torch.cat(idx)
+
+
+def share_matched(a, b, tol_mm: float) -> float:
+    """Share of a's valid features with a valid feature of b within
+    `tol_mm` and of the same shape class."""
+    d, i = nearest_valid(a.xyz, b.xyz, b.mask)
+    ok = a.mask & (d <= tol_mm) & (a.shape == b.shape[i])
+    return float(ok.sum()) / max(int(a.mask.sum()), 1)
+
+
+def repeatability(fixed, moving, to_moving, dist_mm: float = 2.0, angle_deg: float = 20.0):
+    """lrr_tpu/eval/repeatability.py: the share of fixed features that,
+    mapped into moving space by the true transform, have a moving feature
+    within `dist_mm` (and, for the second number, a first direction within
+    `angle_deg` of it)."""
+    d, i = nearest_valid(to_moving(fixed.xyz), moving.xyz, moving.mask)
+    cosang = (fixed.directions[:, 0, :] * moving.directions[i, 0, :]).sum(-1).abs()
+    ang = torch.rad2deg(torch.acos(torch.clamp(cosang, -1.0, 1.0)))
+    ok_dist = fixed.mask & (d <= dist_mm)
+    n = max(int(fixed.mask.sum()), 1)
+    return float(ok_dist.sum()) / n, float((ok_dist & (ang <= angle_deg)).sum()) / n
+
+
+def run_stage1_bench(seed: int, card: str):
+    """Phase 5: volume to verified transform at bench scale."""
+    from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.pipeline.artifacts import load_pair_context
+    from lrr_tpu_torch.utils.synthetic import make_pair
+
+    meta, cfg = load_bench_meta()
+    pair = meta["pair"]
+    committed = load_pair_context(BENCH + ".npz")  # for the agreement check only
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fixed, moving, true = make_pair(
+        tuple(pair["shape_zyx"]), rotation_deg=pair["rotation_deg"],
+        translation=tuple(pair["translation"]), seed=pair["seed"],
+    )
+    torch.cuda.synchronize()
+    phantom_s = time.perf_counter() - t0
+    for k in ("A", "t", "center"):
+        if not np.allclose(getattr(true, k).cpu().numpy(), np.asarray(meta["true"][k]), atol=1e-5):
+            raise AssertionError(f"stage1_bench: true.{k} differs from the committed pair's")
+    ctx, seconds, keypoints = timed_prepare_pair(moving, fixed, cfg)
+    agreement = {
+        side: [share_matched(getattr(ctx, side), getattr(committed, side), 0.01),
+               share_matched(getattr(committed, side), getattr(ctx, side), 0.01)]
+        for side in ("moving_features", "fixed_features")
+    }
+    del committed
+    out = serve_and_check(
+        "stage1_bench", ctx, cfg, meta, seed, card, phantom_s=phantom_s,
+        stage_s=seconds, **context_counts(ctx, keypoints), feature_agreement=agreement,
+    )
+    for side, shares in agreement.items():
+        if min(shares) < 0.95:
+            raise AssertionError(f"stage1_bench: {side} agreement {shares} below 0.95")
+    return out
+
+
+def run_stage1_reference(card: str):
+    """Phase 6: stage 1 at the reference constants (no serving: at CT
+    density that waits for the watershed regions)."""
+    from lrr_tpu_torch.config import (
+        DescriptorConfig, FeatureConfig, KeypointConfig, PipelineConfig,
+    )
+    from lrr_tpu_torch.features.extract import detect_features
+    from lrr_tpu_torch.ops import kernels, voronoi
+    from lrr_tpu_torch.utils.synthetic import make_pair
+
+    cfg = PipelineConfig(
+        features=FeatureConfig(max_features=65536),
+        keypoints=KeypointConfig(max_keypoints=4096),
+        descriptors=DescriptorConfig(min_neighbors=100, max_neighbors=2048),
+    )
+    shape = (400, 350, 350)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fixed, moving, true = make_pair(
+        shape, rotation_deg=6.0, translation=(3.0, -2.0, 1.5), seed=11, noise=0.5, dense=True
+    )
+    torch.cuda.synchronize()
+    phantom_s = time.perf_counter() - t0
+    ctx, seconds, keypoints = timed_prepare_pair(moving, fixed, cfg)
+    launches = dict(kernels.LAUNCHES)
+    k2_shapes = dict(kernels.K2_SHAPES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del moving
+
+    rep_dist, rep_angle = repeatability(
+        ctx.fixed_features, ctx.moving_features, true.inverse().apply
+    )
+
+    # run to run: the same volume gives the same bits
+    t0 = time.perf_counter()
+    again = detect_features(fixed, cfg.features)
+    torch.cuda.synchronize()
+    detect_again_s = time.perf_counter() - t0
+    same_bits = all(
+        torch.equal(getattr(again, f), getattr(ctx.fixed_features, f))
+        for f in ("xyz", "strength", "shape", "projector", "directions", "mask")
+    )
+    del again, fixed
+
+    # the two exact builds on one 32-aligned sub-box (64^3 where the map
+    # allows) of the fixed map
+    fs, fv = ctx.fixed_features, ctx.fixed_vor
+    D, H, W = fv.index_vol.shape
+    z0, y0, x0 = (32 * ((n // 2) // 32) for n in (D, H, W))
+    sub = (min(64, D - z0), min(64, H - y0), min(64, W - x0))
+    sub_origin = fv.origin + torch.tensor([x0, y0, z0], device=fv.origin.device) * fv.spacing
+    t0 = time.perf_counter()
+    brute = voronoi.voronoi_map_exact(fs.xyz, fs.mask, sub_origin, fv.spacing, sub)
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    blocked = voronoi.voronoi_map_exact_blocked(fs.xyz, fs.mask, sub_origin, fv.spacing, sub)
+    exact_builds_equal = torch.equal(brute, blocked)
+    differs_from_map = int(
+        (brute != fv.index_vol[z0 : z0 + sub[0], y0 : y0 + sub[1], x0 : x0 + sub[2]]).sum()
+    )
+
+    counts = context_counts(ctx, keypoints)
+    phase(
+        "stage1_reference", card=card, volume=list(shape), phantom_s=phantom_s, stage_s=seconds,
+        **counts, repeatability_2mm=rep_dist, repeatability_2mm_20deg=rep_angle,
+        launches=launches,
+        k2_shapes=k2_shape_rows(k2_shapes),
+        detect_again_s=detect_again_s, detect_bit_identical=same_bits,
+        exact_builds_equal_on_subbox=exact_builds_equal, subbox_brute_force_s=brute_s,
+        subbox_voxels_differing_from_map=differs_from_map,
+        grids_baked=[ctx.moving_grid is not None, ctx.fixed_grid is not None],
+        peak_mem_gb=peak_gb,
+    )
+    if min(counts["features"]) < 30000:
+        raise AssertionError(f"stage1_reference: feature counts {counts['features']} below 30000")
+    if min(counts["valid_descriptors"]) < 1000:
+        raise AssertionError(
+            f"stage1_reference: valid descriptors {counts['valid_descriptors']} below 1000")
+    if rep_dist < 0.5:
+        raise AssertionError(f"stage1_reference: repeatability at 2 mm {rep_dist} below 0.5")
+    if k2_shapes.get((4096, 4096, 195, 1), 0) < 1:
+        raise AssertionError(f"stage1_reference: no K2 launch at 4096 x 4096 x 195, k=1: {k2_shapes}")
+    if not exact_builds_equal:
+        raise AssertionError("stage1_reference: the two exact Voronoi builds differ")
+    if not same_bits:
+        raise AssertionError("stage1_reference: two runs of detect_features differ")
+    return launches
 
 
 def main() -> None:
@@ -405,12 +652,16 @@ def main() -> None:
     phase("kernels", card=card, launch_floor_ms=floor_ms, normal_equations=k1, knn=k2)
 
     launches, k1_main = run_slice(args.seed, card)
+    launches5, _ = run_stage1_bench(args.seed, card)
+    launches6 = run_stage1_reference(card)
+    for name in launches:
+        launches[name] += launches5[name] + launches6[name]
 
     # each kernel at the shape the serving path gives it most often
     if k1_key(*k1_main, True) not in k1:
         k1[k1_key(*k1_main, True)] = measure_k1(rng, dev, timer, *k1_main, True)
         phase("kernels_main_path_shape", card=card, normal_equations=k1[k1_key(*k1_main, True)])
-    k1m, k2m = k1[k1_key(*k1_main, True)], k2["128x128x195_k1"]
+    k1m, k2m, k2r = k1[k1_key(*k1_main, True)], k2["128x128x195_k1"], k2["4096x4096x195_k1"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": "normal_equations", "route": "cuda",
@@ -420,8 +671,9 @@ def main() -> None:
          "shape": k1_key(*k1_main, True)},
         {"name": "knn", "route": "cuda", "source": "lrr_tpu_torch/csrc/knn.cu",
          "replaces": "lrr_tpu/ops/pallas_kernels.py:108",
-         "launches": launches["knn"], **{k: k2m[k] for k in keys},
-         "shape": "128x128x195_k1"},
+         "launches": launches["knn"], **{k: k2r[k] for k in keys},
+         "shape": "4096x4096x195_k1",
+         "other_path_shapes": {"128x128x195_k1": {k: k2m[k] for k in keys}}},
     ], "launch_floor_ms": floor_ms}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
-"""Closed-form eigenvalues of symmetric 3x3 matrices (lrr_tpu/ops/eig3.py).
+"""Closed-form eigendecomposition of symmetric 3x3 matrices
+(lrr_tpu/ops/eig3.py).
 
-Branch-free trigonometric (Smith's method) eigenvalues, batched over leading
-dims; used by the singular-value sanity check of every ICP iteration and by
-the transfer-error statistics.
+Branch-free trigonometric (Smith's method) eigenvalues and eigenvectors by
+cross products, batched over leading dims.  The eigenvalues serve the
+singular-value sanity check of every ICP iteration and the transfer-error
+statistics; the full decomposition serves the detector's NMS directions and
+sub-voxel fit.
 """
 
 from __future__ import annotations
@@ -45,3 +48,53 @@ def eigvalsh3(S: torch.Tensor) -> torch.Tensor:
     e_mid = torch.where(zero_p, q, e_mid)
     e_hi = torch.where(zero_p, q, e_hi)
     return torch.stack([e_lo, e_mid, e_hi], dim=-1)
+
+
+def _eigvec(S: torch.Tensor, lam: torch.Tensor, fallback: torch.Tensor) -> torch.Tensor:
+    """Unit eigenvector of S for eigenvalue lam: the largest of the three
+    cross products of rows of (S - lam I) (the first of equal ones, as
+    `jnp.argmax` picks), or `fallback` where all three vanish."""
+    eye = torch.eye(3, dtype=S.dtype, device=S.device)
+    M = S - lam[..., None, None] * eye
+    r0, r1, r2 = M[..., 0, :], M[..., 1, :], M[..., 2, :]
+    cand = torch.stack(
+        [torch.linalg.cross(r0, r1), torch.linalg.cross(r0, r2), torch.linalg.cross(r1, r2)],
+        dim=-2,
+    )
+    n = (cand * cand).sum(-1)
+    nmax, best = torch.max(n, dim=-1, keepdim=True)
+    v = cand.gather(-2, best[..., None].expand(best.shape + (3,)))[..., 0, :]
+    return torch.where(nmax > 1e-24, v / torch.sqrt(torch.clamp(nmax, min=1e-30)), fallback)
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt((v * v).sum(-1, keepdim=True))
+
+
+def unit(v: torch.Tensor) -> torch.Tensor:
+    """Rows of v [..., 3] scaled to unit length (a zero row stays zero)."""
+    return v / torch.clamp(_norm(v), min=1e-12)
+
+
+def eigh3(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full symmetric 3x3 eigendecomposition: (w [..., 3] ascending,
+    V [..., 3, 3]) with V[..., :, i] the unit eigenvector of w[..., i], a
+    right-handed orthonormal frame (v_mid = v_hi x v_lo)."""
+    w = eigvalsh3(S)
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=S.dtype, device=S.device).expand(w.shape)
+    ey = torch.tensor([0.0, 1.0, 0.0], dtype=S.dtype, device=S.device).expand(w.shape)
+    v_hi = _eigvec(S, w[..., 2], ex)
+    # make lo orthogonal to hi even when eigenvalues cluster
+    v_lo = _eigvec(S, w[..., 0], ey)
+    v_lo = v_lo - (v_lo * v_hi).sum(-1, keepdim=True) * v_hi
+    norm = _norm(v_lo)
+    alt = torch.linalg.cross(v_hi, ey)
+    alt_n = _norm(alt)
+    alt2 = torch.linalg.cross(v_hi, ex)
+    alt2_n = _norm(alt2)
+    alt = torch.where(
+        alt_n > 1e-6, alt / torch.clamp(alt_n, min=1e-30), alt2 / torch.clamp(alt2_n, min=1e-30)
+    )
+    v_lo = torch.where(norm > 1e-6, v_lo / torch.clamp(norm, min=1e-30), alt)
+    v_mid = torch.linalg.cross(v_hi, v_lo)
+    return w, torch.stack([v_lo, v_mid, v_hi], dim=-1)

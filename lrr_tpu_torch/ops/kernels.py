@@ -12,7 +12,8 @@
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  `LAUNCHES` counts kernel
 launches (never plain-version calls) so a run can show that its path went
-through the kernels; `K1_SHAPES` logs which shapes K1 was launched at.
+through the kernels; `K1_SHAPES` and `K2_SHAPES` log which shapes they were
+launched at.
 """
 
 from __future__ import annotations
@@ -27,12 +28,14 @@ KMAX = 128  # largest k the k-NN kernel keeps (the TPU kernel's lane width)
 
 LAUNCHES = {"normal_equations": 0, "knn": 0}
 K1_SHAPES: dict[tuple[int, int, int], int] = {}  # (L, M_f, M_b) -> launches
+K2_SHAPES: dict[tuple[int, int, int, int], int] = {}  # (Q, N, D, k) -> launches
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     K1_SHAPES.clear()
+    K2_SHAPES.clear()
 
 
 def _check_cuda(name: str, dtype, device, *tensors, contiguous: bool = True) -> None:
@@ -263,4 +266,5 @@ def knn(
             "knn",
         )
         LAUNCHES["knn"] += 1
+        K2_SHAPES[(Q, N, D, k)] = K2_SHAPES.get((Q, N, D, k), 0) + 1
     return d, i

@@ -1,4 +1,9 @@
-"""Stage 2+3 serving path (lrr_tpu/pipeline/registration.py).
+"""Stage 1 (`prepare_pair`) and the stage 2+3 serving path
+(lrr_tpu/pipeline/registration.py).
+
+`prepare_pair` takes the two volumes to a `PairContext`: features,
+keypoints, descriptors, Voronoi maps, the descriptor-NN table and the baked
+NN-row grids, all on the volumes' device.
 
 Per query location: candidate generation by descriptor indexing,
 keypoint-frame initialisation, ROI feature selection, PASS-1 ranking by
@@ -7,9 +12,9 @@ ICP, backward covariance, decision measurements and SVM verification; the
 first verified candidate in rank order wins (itkLocationRegistration.cxx:
 2332-2528).  `register_locations_staged` is the serving entry point.
 
-Stage 1 (`prepare_pair`) is not ported yet: the context comes from a saved
-lrr_tpu artifact (`pipeline.artifacts.load_pair_context`).  Randomness comes
-from a `SamplingPlan` (see `sampling.py`).
+A context can also come from an artifact that the JAX package saved
+(`pipeline.artifacts.load_pair_context`).  Randomness comes from a
+`SamplingPlan` (see `sampling.py`).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from lrr_tpu_torch.config import PipelineConfig
 from lrr_tpu_torch.estimation.icp import (
     ICPResult,
     VoronoiGrid,
+    bake_target_grid,
     _angle_stats_packed,
     _as_packed_matches,
     _pack_features_wide,
@@ -36,11 +42,22 @@ from lrr_tpu_torch.estimation.measurements import (
     backward_covariance,
     decision_measurements,
 )
-from lrr_tpu_torch.matching.indexing import generate_candidates, initial_transforms
+from lrr_tpu_torch.features.extract import detect_features, extract_keypoints
+from lrr_tpu_torch.matching.indexing import (
+    descriptor_nn_table,
+    generate_candidates,
+    initial_transforms,
+)
 from lrr_tpu_torch.models.affine import Affine3D
+from lrr_tpu_torch.ops.descriptors import compute_descriptors
+from lrr_tpu_torch.ops.voronoi import build_feature_voronoi
 from lrr_tpu_torch.sampling import SamplingPlan
-from lrr_tpu_torch.types import DescriptorSet, FeatureSet
+from lrr_tpu_torch.types import DescriptorSet, FeatureSet, Volume
 from lrr_tpu_torch.verify.svm import SvmModel, predict_probability, scale_measurements
+
+# maps above this voxel count get no baked NN-row grid ([V, 8] fp32: 2 GB at
+# 64M voxels)
+FUSED_GRID_MAX_VOXELS = 64 * 1024 * 1024
 
 # consecutive low-yield waves (< 1/4 of active queries resolved) after which
 # a wave refines every remaining rank at once
@@ -59,12 +76,53 @@ class PairContext:
     moving_vor: VoronoiGrid
     fixed_vor: VoronoiGrid
     nn_table: tuple[torch.Tensor, torch.Tensor]  # (moving index, distance) [Kf]
-    fixed_grid: torch.Tensor  # [V, 8] baked NN rows (icp.bake_target_grid)
-    moving_grid: torch.Tensor
+    # [V, 8] baked NN rows (icp.bake_target_grid); None for a map above
+    # FUSED_GRID_MAX_VOXELS, which this package cannot serve from yet
+    fixed_grid: torch.Tensor | None
+    moving_grid: torch.Tensor | None
 
     @property
     def device(self) -> torch.device:
         return self.moving_features.xyz.device
+
+
+def assemble_pair_context(
+    fs_m: FeatureSet, fs_f: FeatureSet, ds_m: DescriptorSet, ds_f: DescriptorSet,
+    mv: VoronoiGrid, fv: VoronoiGrid,
+) -> PairContext:
+    """The context of a pair from its stage-1 sets and maps: adds the derived
+    state, the fixed->moving descriptor-NN table (kernel K2) and the baked
+    NN-row grids."""
+
+    def grid(fs, vor):
+        if vor.index_vol.numel() > FUSED_GRID_MAX_VOXELS:
+            return None
+        return bake_target_grid(fs, vor)
+
+    return PairContext(
+        moving_features=fs_m, fixed_features=fs_f,
+        moving_descriptors=ds_m, fixed_descriptors=ds_f,
+        moving_vor=mv, fixed_vor=fv,
+        nn_table=descriptor_nn_table(ds_f, ds_m),
+        fixed_grid=grid(fs_f, fv), moving_grid=grid(fs_m, mv),
+    )
+
+
+def prepare_pair(moving: Volume, fixed: Volume, cfg: PipelineConfig) -> PairContext:
+    """Stage 1 for both volumes, on their device: features, keypoints,
+    descriptors, Voronoi maps (ExtractFeatures + ExtractKeypoints +
+    ComputeDescriptors + compute_distance_map), then the derived state."""
+    if moving.device != fixed.device:
+        raise ValueError(f"prepare_pair: volumes on {moving.device} and {fixed.device}")
+    fs_m = detect_features(moving, cfg.features)
+    fs_f = detect_features(fixed, cfg.features)
+    kp_m = extract_keypoints(fs_m, cfg.keypoints)
+    kp_f = extract_keypoints(fs_f, cfg.keypoints)
+    ds_m = compute_descriptors(kp_m, fs_m, cfg.descriptors)
+    ds_f = compute_descriptors(kp_f, fs_f, cfg.descriptors)
+    mv = VoronoiGrid(*build_feature_voronoi(fs_m.xyz, fs_m.mask))
+    fv = VoronoiGrid(*build_feature_voronoi(fs_f.xyz, fs_f.mask))
+    return assemble_pair_context(fs_m, fs_f, ds_m, ds_f, mv, fv)
 
 
 @dataclasses.dataclass
@@ -259,6 +317,12 @@ def register_locations_staged(
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if ctx.fixed_grid is None or ctx.moving_grid is None:
+        raise ValueError(
+            "register_locations_staged: this context has a Voronoi map above "
+            f"{FUSED_GRID_MAX_VOXELS} voxels and so no baked NN-row grid; serving "
+            "from the bare index map is not ported"
+        )
     dev = ctx.device
     queries = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=dev))
     svm = svm.to(dev)

@@ -19,9 +19,38 @@ SHEET = 2
 DESCRIPTOR_DIM = 195
 
 
+def resolve_device(device, who: str) -> torch.device:
+    """The device an entry point creates its data on.  `None` means the CUDA
+    card: it raises where there is none and never carries on on the CPU by
+    itself (a caller that wants the CPU, as the tests do, says "cpu")."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{who}: no CUDA device; lrr_tpu_torch runs on the GPU unless the "
+                'caller asks for the CPU (pass device="cpu")'
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
 def _to(obj, device):
     return type(obj)(
         **{f.name: getattr(obj, f.name).to(device) for f in dataclasses.fields(obj)}
+    )
+
+
+def pad_rows(obj, pad: int):
+    """A set with `pad` zero (masked-out) rows appended to every field."""
+    if pad == 0:
+        return obj
+    return type(obj)(
+        **{
+            f.name: torch.cat(
+                [getattr(obj, f.name),
+                 getattr(obj, f.name).new_zeros((pad,) + getattr(obj, f.name).shape[1:])]
+            )
+            for f in dataclasses.fields(obj)
+        }
     )
 
 
@@ -42,6 +71,19 @@ class FeatureSet:
     def capacity(self) -> int:
         return self.xyz.shape[-2]
 
+    def count(self) -> torch.Tensor:
+        return self.mask.sum(-1)
+
+    def take(self, idx: torch.Tensor, valid: torch.Tensor | None = None) -> "FeatureSet":
+        """Gather rows by index; optionally AND the mask with `valid`."""
+        mask = self.mask[idx]
+        if valid is not None:
+            mask = mask & valid
+        return FeatureSet(
+            xyz=self.xyz[idx], strength=self.strength[idx], shape=self.shape[idx],
+            projector=self.projector[idx], directions=self.directions[idx], mask=mask,
+        )
+
     def to(self, device) -> "FeatureSet":
         return _to(self, device)
 
@@ -56,6 +98,13 @@ class KeypointSet:
     binormal: torch.Tensor
     mask: torch.Tensor
 
+    @property
+    def capacity(self) -> int:
+        return self.xyz.shape[-2]
+
+    def count(self) -> torch.Tensor:
+        return self.mask.sum(-1)
+
     def to(self, device) -> "KeypointSet":
         return _to(self, device)
 
@@ -69,3 +118,29 @@ class DescriptorSet:
 
     def to(self, device) -> "DescriptorSet":
         return DescriptorSet(self.keypoints.to(device), self.descriptors.to(device))
+
+
+@dataclasses.dataclass
+class Volume:
+    """A 3D scalar volume with physical geometry: data [D, H, W] indexed
+    [z, y, x]; origin and spacing [3] are (x, y, z) in mm."""
+
+    data: torch.Tensor
+    origin: torch.Tensor
+    spacing: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def to(self, device) -> "Volume":
+        return _to(self, device)
+
+
+def concat_feature_sets(a: FeatureSet, b: FeatureSet) -> FeatureSet:
+    return FeatureSet(
+        **{
+            f.name: torch.cat([getattr(a, f.name), getattr(b, f.name)], dim=0)
+            for f in dataclasses.fields(a)
+        }
+    )

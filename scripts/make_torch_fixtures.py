@@ -1,8 +1,10 @@
-"""Write the stage-1 pair contexts that the PyTorch port (lrr_tpu_torch) serves.
+"""Write the stage-1 pair contexts of lrr_tpu that the PyTorch port
+(lrr_tpu_torch) is held against.
 
-The port has no stage 1 yet, so it loads pair contexts that lrr_tpu prepared
-and saved with `pipeline.artifacts.save_pair_context`.  This script makes
-them with lrr_tpu on the CPU:
+The port has its own stage 1; these contexts, prepared by lrr_tpu and saved
+with `pipeline.artifacts.save_pair_context`, are its references: the port
+loads them (`load_pair_context`), serves them, and compares its own
+features with theirs.  This script makes them with lrr_tpu on the CPU:
 
   tests/data/torch_pair_small.npz (+ .json)
       a 32^3 `make_pair` context at a small config, for the port's CPU

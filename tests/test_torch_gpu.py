@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and its serving slice on the card.
+"""The port's CUDA kernels, its stage 1 and its serving slice on the card.
 
 Every test here needs a CUDA GPU and skips without one.  The file imports
 neither JAX nor lrr_tpu, so it also runs where only PyTorch is installed:
@@ -13,11 +13,17 @@ import numpy as np
 import pytest
 import torch
 
-from lrr_tpu_torch.config import pipeline_config_from_dict
-from lrr_tpu_torch.ops import kernels
+from lrr_tpu_torch.config import (
+    DescriptorConfig, FeatureConfig, KeypointConfig, pipeline_config_from_dict,
+)
+from lrr_tpu_torch.features.extract import detect_features, extract_keypoints
+from lrr_tpu_torch.ops import contrast, filters, kernels, resample, voronoi
+from lrr_tpu_torch.ops.descriptors import compute_descriptors
+from lrr_tpu_torch.ops.sparsify import sparsify_mask
 from lrr_tpu_torch.pipeline.artifacts import load_pair_context
-from lrr_tpu_torch.pipeline.registration import register_locations_staged
+from lrr_tpu_torch.pipeline.registration import prepare_pair, register_locations_staged
 from lrr_tpu_torch.sampling import draw_sampling_plan
+from lrr_tpu_torch.utils.synthetic import make_pair
 from lrr_tpu_torch.verify.svm import load_default_verifier
 
 K1_TOL = 2e-5  # x the largest entry: fp32 sums in another order
@@ -204,3 +210,149 @@ def test_slice_on_gpu_matches_cpu(cuda):
         if int(sel[q]) >= 0:
             a, b = got.trans.A[q, sel[q]].cpu(), want.trans.A[q, sel[q]]
             assert float((a - b).abs().max()) <= 5e-3 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# stage 1 on the card: against the CPU, run to run, and on planted ties
+# ---------------------------------------------------------------------------
+
+STAGE1_FEATURES = FeatureConfig(max_features=4096, contrast_radius_mm=6.0)
+
+
+def _dense_pair(device):
+    return make_pair((48, 44, 40), rotation_deg=5.0, translation=(1.0, -1.0, 0.5), seed=4,
+                     noise=0.5, dense=True, device=device)
+
+
+def _fields_equal(a, b) -> bool:
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()) for f in vars(a))
+
+
+@pytest.mark.gpu
+def test_dense_stages_on_gpu_match_cpu(cuda):
+    """Filters, trilinear sampling and contrast filtering on the card
+    against the CPU on the same volume: values to 1e-5 of the scale (the
+    card fuses multiply-adds), the contrast mask but for a handful of
+    voxels at their threshold."""
+    fixed_c, _, _ = _dense_pair("cpu")
+    vol = fixed_c.data
+    grad_c = filters.gaussian_gradient(vol, (1.0, 1.0, 1.0), (1.0, 1.0, 1.0))
+    grad_g = filters.gaussian_gradient(vol.to(cuda), (1.0, 1.0, 1.0), (1.0, 1.0, 1.0))
+    scale = float(grad_c.abs().max())
+    assert float((grad_g.cpu() - grad_c).abs().max()) <= 1e-5 * scale
+    pts = torch.tensor(np.random.default_rng(0).uniform(-1, 45, (500, 3)), dtype=torch.float32)
+    val_c, in_c = resample.sample_trilinear(grad_c, pts)
+    val_g, in_g = resample.sample_trilinear(grad_c.to(cuda), pts.to(cuda))
+    assert torch.equal(in_g.cpu(), in_c)
+    assert float((val_g.cpu() - val_c).abs().max()) <= 1e-5 * scale
+    score = filters.box_mean((grad_c * grad_c).sum(-1), 1)
+    ones = torch.ones_like(score, dtype=torch.bool)
+    keep_c = contrast.contrast_keep_mask(score, ones, 6)
+    keep_g = contrast.contrast_keep_mask(score.to(cuda), ones.to(cuda), 6)
+    assert 0.05 < float(keep_c.float().mean()) < 0.95
+    assert torch.equal(keep_g.cpu(), keep_c)  # the same input: sorts and comparisons only
+
+
+@pytest.mark.gpu
+def test_stage1_on_gpu_matches_cpu(cuda):
+    """`prepare_pair` on the card against the CPU on the same pair: at least
+    99 % of the features within 1e-3 mm and of the same class, both ways;
+    K2 launched once inside it."""
+    cfg = pipeline_config_from_dict(json.load(open(SMALL + ".json"))["config"])
+    fixed_c, moving_c, _ = _dense_pair("cpu")
+    want = prepare_pair(moving_c, fixed_c, cfg)
+    n0 = kernels.LAUNCHES["knn"]
+    got = prepare_pair(moving_c.to(cuda), fixed_c.to(cuda), cfg)
+    assert kernels.LAUNCHES["knn"] == n0 + 1
+    assert got.device.type == "cuda"
+    for side in ("moving_features", "fixed_features"):
+        a, b = getattr(got, side).to("cpu"), getattr(want, side)
+        assert abs(int(a.count()) - int(b.count())) <= 0.01 * int(b.count())
+        for x, y in ((a, b), (b, a)):
+            d = torch.cdist(x.xyz[x.mask].double(), y.xyz[y.mask].double())
+            dmin, j = d.min(1)
+            ok = (dmin <= 1e-3) & (x.shape[x.mask] == y.shape[y.mask][j])
+            assert float(ok.float().mean()) >= 0.99
+    assert tuple(got.fixed_vor.index_vol.shape) == tuple(want.fixed_vor.index_vol.shape)
+
+
+@pytest.mark.gpu
+def test_stage1_is_bit_identical_run_to_run(cuda):
+    """`detect_features`, `compute_descriptors` and both exact Voronoi
+    builds twice on the card: the same bits."""
+    fixed, _, _ = _dense_pair(cuda)
+    fs = detect_features(fixed, STAGE1_FEATURES)
+    assert int(fs.count()) > 500
+    assert _fields_equal(fs, detect_features(fixed, STAGE1_FEATURES))
+    kp = extract_keypoints(fs, KeypointConfig(max_keypoints=64))
+    dcfg = DescriptorConfig(min_neighbors=20, max_neighbors=256)
+    ds = compute_descriptors(kp, fs, dcfg)
+    assert int(ds.keypoints.count()) > 5
+    again = compute_descriptors(kp, fs, dcfg)
+    assert torch.equal(ds.descriptors, again.descriptors)
+    assert _fields_equal(ds.keypoints, again.keypoints)
+    origin = torch.tensor([-1.7300001, 2.9333334, 0.1234567], device=cuda)
+    spacing = torch.full((3,), 0.7, device=cuda)
+    args = (fs.xyz, fs.mask, origin, spacing, (64, 64, 64))
+    plain = voronoi.voronoi_map_exact(*args)
+    assert torch.equal(plain, voronoi.voronoi_map_exact(*args))
+    for block in (32, 16):
+        assert torch.equal(plain, voronoi.voronoi_map_exact_blocked(*args, block=block))
+    # and the CPU builds the same map but for last-bit ties
+    cpu = voronoi.voronoi_map_exact(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+    assert float((plain.cpu() != cpu).float().mean()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_voronoi_ties_go_to_the_lowest_index_on_gpu(cuda):
+    """An integer lattice of features in shuffled order: voxels half-way
+    between features see exactly equal distances, and `torch.min` on the card
+    must return the lowest index, as on the CPU, in the arg-min of all three map builds."""
+    rng = np.random.default_rng(11)
+    g = np.stack(np.meshgrid(*[np.arange(0.0, 60.0, 6.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    pts = torch.tensor(rng.permutation(g), dtype=torch.float32)
+    mask = torch.tensor(rng.uniform(size=len(pts)) > 0.2)
+    origin, spacing, shape = torch.zeros(3), torch.ones(3), (64, 64, 64)
+    want = voronoi.voronoi_map_exact(pts, mask, origin, spacing, shape)
+    args = (pts.to(cuda), mask.to(cuda), origin.to(cuda), spacing.to(cuda), shape)
+    assert torch.equal(voronoi.voronoi_map_exact(*args).cpu(), want)
+    assert torch.equal(voronoi.voronoi_map_exact_blocked(*args).cpu(), want)
+    assert torch.equal(voronoi.voronoi_map_exact_blocked(*args, block=16).cpu(), want)
+    jfa_c = voronoi.voronoi_map(pts, mask, origin, spacing, shape)
+    assert torch.equal(voronoi.voronoi_map(*args).cpu(), jfa_c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("min_distance", [2.0, 6.0])
+def test_sparsify_ties_on_gpu(cuda, min_distance):
+    """Equal strengths and lattice distances exactly at the radius: the keep
+    set on the card is the CPU's (stable sort, strict comparison)."""
+    rng = np.random.default_rng(7)
+    g = np.stack(np.meshgrid(*[np.arange(9.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    xyz = torch.tensor(np.concatenate([g, rng.uniform(0, 8, (600, 3))]), dtype=torch.float32)
+    strength = torch.tensor(rng.integers(0, 3, len(xyz)), dtype=torch.float32)
+    mask = torch.tensor(rng.uniform(size=len(xyz)) > 0.1)
+    want = sparsify_mask(xyz, strength, mask, min_distance)
+    got = sparsify_mask(xyz.to(cuda), strength.to(cuda), mask.to(cuda), min_distance)
+    assert torch.equal(got.cpu(), want) and int(want.sum()) > 3
+
+
+@pytest.mark.gpu
+def test_topk_ties_on_gpu(cuda):
+    """Keypoint selection with few distinct strengths: the card's stable
+    descending sort gives the CPU's rows in the CPU's order."""
+    from lrr_tpu_torch.types import FeatureSet
+
+    rng = np.random.default_rng(8)
+    n = 3000
+    fs = FeatureSet(
+        xyz=torch.tensor(rng.uniform(0, 60, (n, 3)), dtype=torch.float32),
+        strength=torch.tensor(rng.integers(1, 5, n), dtype=torch.float32),
+        shape=torch.tensor(rng.integers(0, 3, n), dtype=torch.int32),
+        projector=torch.zeros((n, 3, 3)), directions=torch.tensor(rng.standard_normal((n, 3, 3)),
+                                                                  dtype=torch.float32),
+        mask=torch.tensor(rng.uniform(size=n) > 0.2),
+    )
+    want = extract_keypoints(fs, KeypointConfig(max_keypoints=128))
+    got = extract_keypoints(fs.to(cuda), KeypointConfig(max_keypoints=128))
+    assert _fields_equal(got, want) and int(want.count()) == 128

@@ -181,3 +181,62 @@ def torch_affine(tr):
 
 def stack_affines(trs):
     return jax.tree.map(lambda *xs: jnp.stack(xs), *trs)
+
+
+# ---------------------------------------------------------------------------
+# stage-1 objects across the two packages (as numpy, field for field)
+# ---------------------------------------------------------------------------
+
+
+def _fields_to_torch(obj, cls):
+    import dataclasses
+
+    return cls(**{f.name: t_(getattr(obj, f.name)) for f in dataclasses.fields(cls)})
+
+
+def torch_volume(vol):
+    """lrr_tpu Volume -> lrr_tpu_torch Volume (CPU)."""
+    from lrr_tpu_torch.types import Volume
+
+    return _fields_to_torch(vol, Volume)
+
+
+def torch_features(fs):
+    from lrr_tpu_torch.types import FeatureSet
+
+    return _fields_to_torch(fs, FeatureSet)
+
+
+def torch_keypoints(kp):
+    from lrr_tpu_torch.types import KeypointSet
+
+    return _fields_to_torch(kp, KeypointSet)
+
+
+def torch_descriptors(ds):
+    from lrr_tpu_torch.types import DescriptorSet
+
+    return DescriptorSet(torch_keypoints(ds.keypoints), t_(ds.descriptors))
+
+
+def jax_like(obj, cls):
+    """A port dataclass of tensors -> the lrr_tpu pytree class `cls` with
+    the same field names (Volume, FeatureSet, KeypointSet)."""
+    import dataclasses
+
+    return cls(**{f.name: jnp.asarray(np_(getattr(obj, f.name))) for f in dataclasses.fields(obj)})
+
+
+def jax_config(tcfg):
+    """The lrr_tpu config dataclass with the fields of a port config
+    dataclass (any of the six, or the whole PipelineConfig)."""
+    import dataclasses
+
+    import lrr_tpu.config as jc
+
+    cls = getattr(jc, type(tcfg).__name__)
+    kw = {}
+    for f in dataclasses.fields(tcfg):
+        v = getattr(tcfg, f.name)
+        kw[f.name] = jax_config(v) if dataclasses.is_dataclass(v) else v
+    return cls(**kw)
