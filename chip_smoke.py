@@ -29,7 +29,29 @@ Phases, one line each; any failure raises and exits non-zero:
               peak memory, feature repeatability under the true transform,
               K2's launch at 4096 x 4096 x 195 inside `prepare_pair`, the
               two exact Voronoi builds against each other, and two runs
-              of `detect_features` bit for bit.
+              of `detect_features` bit for bit;
+  7. serve_reference   the phase-6 pair served at the reference constants
+              (train_default_verifier.py::reference_cfg: 20 candidates, 64
+              query keypoints, 8,000 matches, 70 iterations, gate 64):
+              `segment_pair` (seconds per volume for diffusion, gradient
+              and labels, `p[p]` rounds, basins, regions, peak memory), then
+              `register_locations_staged` on 16 queries, one warm-up and
+              three timed runs: seconds, waves, acceptance against the true
+              transform, in-box feature counts, the region-grown masks
+              against the box masks, K1 at 8,000 matches and K2 at
+              4096 x 4096 on the path, two runs of one plan, and that plan
+              served from the bare index maps (seconds, equal bits);
+  8. regions_bench     the phase-5 pair with `segment_pair` and a region
+              target below the box count: whole regions in or out, masks
+              that differ from the box, phase 4's acceptance bounds;
+              `register_locations` (every candidate refined) against the
+              staged run; `register_location_rigid` on 8 queries;
+              `watch_candidate`; one staged run from the bare index maps
+              equal to the run from the baked grids; the kernels' launches
+              of each entry point on its own (none by the rigid model);
+  9. kernels_path_shapes  K1 against its plain version, as in phase 3, at
+              every (lanes, matches) shape a path launched it at that
+              phase 3 did not hold.
 Then a JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -208,6 +230,9 @@ K1_SHAPES = [
     (1, 500, 400, False), (5, 1023, 77, False),  # a ragged M, not divisible by 4
     # as the serving path hands them over: views of the ICP's row gathers
     (64, 2048, 2048, True), (64, 4096, 4096, True),
+    # the reference constants' full capacity (`backward_covariance`): 8000 is
+    # no multiple of 128, the tail of every block's last tile is ragged
+    (64, 8000, 8000, False), (64, 8000, 8000, True),
 ]
 
 
@@ -321,10 +346,13 @@ def k2_shape_rows(shapes: dict) -> list[dict]:
     return [{"Q": k[0], "N": k[1], "D": k[2], "k": k[3], "launches": n} for k, n in shapes.items()]
 
 
-def serve_and_check(label: str, ctx, cfg, meta, seed: int, card: str, **fields):
+def serve_and_check(label: str, ctx, cfg, meta, seed: int, card: str,
+                    on_path=("normal_equations", "knn"), **fields):
     """Serve the bench queries on `ctx` (one warm-up, three timed runs), print
     the phase line, and hold launches and acceptance to their bounds.  The
-    caller set the launch counts to 0 before it made the context."""
+    caller set the launch counts to 0 just before the part of its path that
+    ends here; `on_path` names the kernels that part runs.  Returns the
+    launch counts and K1's {(L, M_f, M_b): launches}."""
     from lrr_tpu_torch.models.affine import Affine3D
     from lrr_tpu_torch.ops import kernels
     from lrr_tpu_torch.pipeline.registration import register_locations_staged
@@ -373,8 +401,8 @@ def serve_and_check(label: str, ctx, cfg, meta, seed: int, card: str, **fields):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     phase(label, **rec)
-    for name, n in launches.items():
-        if n <= 0:
+    for name in on_path:
+        if launches[name] <= 0:
             raise AssertionError(f"{label}: kernel {name} was never launched on the main path")
     slack = 2.0 / len(queries)
     if acc["verified_frac"] < ref["verified_frac"] - slack:
@@ -384,7 +412,7 @@ def serve_and_check(label: str, ctx, cfg, meta, seed: int, card: str, **fields):
     err_cap = max(1.0, 1.5 * ref["median_gt_error_mm"])
     if acc["median_gt_error_mm"] is None or acc["median_gt_error_mm"] > err_cap:
         raise AssertionError(f"{label}: median_gt_error_mm {acc['median_gt_error_mm']} above {err_cap}")
-    return launches, k1_shapes[0][0]
+    return launches, dict(k1_shapes)
 
 
 def run_slice(seed: int, card: str):
@@ -528,24 +556,38 @@ def run_stage1_bench(seed: int, card: str):
     for side, shares in agreement.items():
         if min(shares) < 0.95:
             raise AssertionError(f"stage1_bench: {side} agreement {shares} below 0.95")
-    return out
+    return out, (ctx, moving, fixed, cfg, meta)
+
+
+def reference_config():
+    """The reference constants with the gate that serves the dense phantom
+    (scripts/train_default_verifier.py::reference_cfg: a 50 mm box holds
+    100-200 of its features, a tenth of chest CT's, so 64 for the
+    reference's 1000)."""
+    from lrr_tpu_torch.config import (
+        DescriptorConfig, EstimationConfig, FeatureConfig, IndexingConfig, KeypointConfig,
+        PipelineConfig,
+    )
+
+    return PipelineConfig(
+        features=FeatureConfig(max_features=65536),
+        keypoints=KeypointConfig(max_keypoints=4096),
+        descriptors=DescriptorConfig(min_neighbors=100, max_neighbors=2048),
+        indexing=IndexingConfig(num_candidates=20, max_query_keypoints=64),
+        estimation=EstimationConfig(
+            max_matches=8000, max_iterations=70, min_region_features=64),
+    )
 
 
 def run_stage1_reference(card: str):
-    """Phase 6: stage 1 at the reference constants (no serving: at CT
-    density that waits for the watershed regions)."""
-    from lrr_tpu_torch.config import (
-        DescriptorConfig, FeatureConfig, KeypointConfig, PipelineConfig,
-    )
+    """Phase 6: stage 1 at the reference constants.  The pair and its
+    context go on to phase 7, and so do the launch counts: set to 0 here,
+    read there, over the path volume -> context -> regions -> served."""
     from lrr_tpu_torch.features.extract import detect_features
     from lrr_tpu_torch.ops import kernels, voronoi
     from lrr_tpu_torch.utils.synthetic import make_pair
 
-    cfg = PipelineConfig(
-        features=FeatureConfig(max_features=65536),
-        keypoints=KeypointConfig(max_keypoints=4096),
-        descriptors=DescriptorConfig(min_neighbors=100, max_neighbors=2048),
-    )
+    cfg = reference_config()
     shape = (400, 350, 350)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -559,7 +601,6 @@ def run_stage1_reference(card: str):
     launches = dict(kernels.LAUNCHES)
     k2_shapes = dict(kernels.K2_SHAPES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    del moving
 
     rep_dist, rep_angle = repeatability(
         ctx.fixed_features, ctx.moving_features, true.inverse().apply
@@ -574,7 +615,7 @@ def run_stage1_reference(card: str):
         torch.equal(getattr(again, f), getattr(ctx.fixed_features, f))
         for f in ("xyz", "strength", "shape", "projector", "directions", "mask")
     )
-    del again, fixed
+    del again
 
     # the two exact builds on one 32-aligned sub-box (64^3 where the map
     # allows) of the fixed map
@@ -618,7 +659,429 @@ def run_stage1_reference(card: str):
         raise AssertionError("stage1_reference: the two exact Voronoi builds differ")
     if not same_bits:
         raise AssertionError("stage1_reference: two runs of detect_features differ")
-    return launches
+    return ctx, moving, fixed, true, cfg
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: regions, serving at the reference constants, the other
+# entry points
+# ---------------------------------------------------------------------------
+
+WATERSHED_STAGES = ("anisotropic_diffusion", "gradient_magnitude", "watershed_labels")
+
+
+def timed_segment_pair(moving, fixed, ctx):
+    """`segment_pair` through its entry point with the watershed's stage
+    functions wrapped as in `timed_prepare_pair`: (context, record); calls
+    run moving first.  `pointer_jumps` holds rounds and seconds of each
+    `p <- p[p]` loop (two a volume), `basins` the distinct labels."""
+    from lrr_tpu_torch.ops import watershed
+    from lrr_tpu_torch.pipeline import registration
+
+    names = WATERSHED_STAGES + ("_pointer_jump",)
+    seconds = {name: [] for name in WATERSHED_STAGES}
+    jumps, basins = [], []
+    originals = {name: getattr(watershed, name) for name in names}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if name == "_pointer_jump":
+                jumps.append({"rounds": out[1], "seconds": dt})
+            else:
+                seconds[name].append(dt)
+            if name == "watershed_labels":
+                # a label is the flat index of a voxel that carries it
+                flat = out.reshape(-1)
+                own = torch.arange(flat.numel(), dtype=flat.dtype, device=flat.device)
+                basins.append(int((flat == own).sum()))
+            return out
+        return call
+
+    for name in names:
+        setattr(watershed, name, timed(name))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        out = registration.segment_pair(moving, fixed, ctx)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(watershed, name, fn)
+    return out, {
+        "segment_pair_s": total, "stage_s": seconds, "pointer_jumps": jumps, "basins": basins,
+        "regions": [int(out.moving_region_labels.max()) + 1,
+                    int(out.fixed_region_labels.max()) + 1],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "held_before_gb": held_gb,
+    }
+
+
+def gt_errors(trans, queries: np.ndarray, true) -> torch.Tensor:
+    """[Q, C] error in mm of every transform of a [Q, C] batch against the
+    true one, on `acceptance_stats`' 20 probes around each query (median)."""
+    inv = true.inverse()
+    rows = []
+    for q in range(len(queries)):
+        probe = queries[q][None, :] + np.random.default_rng(q).uniform(
+            -15, 15, (20, 3)).astype(np.float32)
+        src = inv.apply(torch.as_tensor(probe, device=trans.A.device))
+        err = torch.linalg.norm(trans[q].apply(src) - true.apply(src), dim=-1)  # [C, 20]
+        rows.append(err.median(-1).values)
+    return torch.stack(rows)
+
+
+def pass1_lanes(ctx, q: torch.Tensor, cfg, plan):
+    """PASS 1 of the serving path, and its Q x C candidates as lanes:
+    (cmask, inits, enough, rank, lane transforms, lane queries)."""
+    from lrr_tpu_torch.models.affine import Affine3D
+    from lrr_tpu_torch.pipeline import registration
+
+    cmask, inits, _, enough, _, rank, _, _ = registration._pass1_fn(ctx, q, cfg, plan)
+    Q, C = cmask.shape
+    flat = Affine3D(inits.A.flatten(0, 1), inits.t.flatten(0, 1), inits.center.flatten(0, 1))
+    return cmask, inits, enough, rank, flat, q[:, None, :].expand(Q, C, 3).reshape(Q * C, 3)
+
+
+def spread(x: torch.Tensor) -> list:
+    """[min, median, max] of a tensor's values."""
+    x = x.reshape(-1).float()
+    if x.numel() == 0:
+        return [None, None, None]
+    return [float(x.min()), float(np.median(x.cpu().numpy())), float(x.max())]
+
+
+def run_serve_reference(seed: int, card: str, ref):
+    """Phase 7: regions attached and 16 queries served at the reference
+    constants, on phase 6's pair and context."""
+    import dataclasses
+
+    from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.pipeline import registration
+    from lrr_tpu_torch.sampling import draw_sampling_plan
+    from lrr_tpu_torch.verify.svm import load_default_verifier
+
+    ctx, moving, fixed, true, cfg = ref
+    dev = ctx.device
+    ctx_r, seg = timed_segment_pair(moving, fixed, ctx)
+
+    # queries inside the phantom's structured ellipsoid, as lrr_tpu's
+    # reference-scale profile draws them
+    D, H, W = moving.data.shape
+    ext = [float(W), float(H), float(D)]
+    queries = np.random.default_rng(1).uniform(
+        [0.3 * e for e in ext], [0.7 * e for e in ext], (16, 3)).astype(np.float32)
+    q = torch.as_tensor(queries, device=dev)
+    Q, C = len(queries), cfg.indexing.num_candidates
+    svm = load_default_verifier()
+
+    def plan_for(run: int):
+        g = torch.Generator(device=dev).manual_seed(seed * 1000 + 700 + run)
+        return draw_sampling_plan(
+            g, Q, cfg, ctx.moving_features.capacity, ctx.fixed_features.capacity)
+
+    # the region-grown sets against the box sets, over PASS 1's lanes
+    plan = plan_for(0)
+    cmask, inits, enough, rank, flat, q_lanes = pass1_lanes(ctx_r, q, cfg, plan)
+    grown = registration._candidate_rois(ctx_r, flat, q_lanes, cfg)
+    box = registration._candidate_rois(ctx, flat, q_lanes, cfg)
+    target = cfg.estimation.target_region_features
+    live = cmask.reshape(-1)
+    masks_equal = True
+    for g_sel, b_sel in ((grown[0], box[0]), (grown[1], box[1])):
+        small = b_sel.sum(-1) < target
+        masks_equal &= bool(torch.equal(g_sel[small], b_sel[small]))
+    in_box = {
+        "fixed_per_query": spread(box[1].sum(-1).reshape(Q, C)[:, 0]),
+        "moving_per_candidate": spread(box[0].sum(-1)[live]),
+        "lanes_under_target": int(((box[0].sum(-1) < target) & (box[1].sum(-1) < target)).sum()),
+    }
+    usable = (cmask & enough)
+    rank0 = rank[:, 0]
+    init_err = gt_errors(inits, queries, true)
+    del grown, box
+
+    waves, outs, times = [], [], []
+    wave_fn = registration._wave_fn
+
+    def counted(ctx_, queries_, cfg_, svm_, inits_, plan_, lanes, cand_idx):
+        waves[-1].append(int(lanes.numel()))
+        return wave_fn(ctx_, queries_, cfg_, svm_, inits_, plan_, lanes, cand_idx)
+
+    registration._wave_fn = counted
+    try:
+        # warm-up on plan 0; timed runs on plans 1, 2 and 2 again
+        for run in (0, 1, 2, 2):
+            if run != 0 and len(outs) < 3:
+                plan = plan_for(run)
+            waves.append([])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = registration.register_locations_staged(ctx_r, q, cfg, svm, plan)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            outs.append(out)
+    finally:
+        registration._wave_fn = wave_fn
+    launches = dict(kernels.LAUNCHES)
+    k1_shapes = sorted(kernels.K1_SHAPES.items(), key=lambda kv: -kv[1])
+    k2_shapes = dict(kernels.K2_SHAPES)
+
+    # the last plan again from the bare index maps (after the counts were
+    # read): the same rows, so the same result; its seconds beside the grids'
+    ctx_bare = dataclasses.replace(ctx_r, fixed_grid=None, moving_grid=None)
+    bare_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bare = registration.register_locations_staged(ctx_bare, q, cfg, svm, plan)
+        torch.cuda.synchronize()
+        bare_s.append(time.perf_counter() - t0)
+    bare_equal = all(torch.equal(a, b) for a, b in (
+        (bare.selected, outs[-1].selected), (bare.trans.A, outs[-1].trans.A),
+        (bare.trans.t, outs[-1].trans.t), (bare.probability, outs[-1].probability)))
+    del plan, bare, ctx_bare
+
+    out = outs[-1]
+    acc = acceptance_stats(out, queries, true)
+    sel = out.selected.cpu().numpy()
+    rank_h = out.rank.cpu().numpy()
+    final_err = gt_errors(out.trans, queries, true)
+    refined = out.refined
+    good = refined & (final_err < 1.0)
+    rec = {
+        "card": card, "queries": Q, "candidates": C, "segment": seg,
+        "warmup_s": times[0], "run_s": times[1:], "waves": waves[1:],
+        "verified": int((sel >= 0).sum()), **acc,
+        "accepted_rank_positions": [
+            int(np.nonzero(rank_h[i] == sel[i])[0][0]) if sel[i] >= 0 else None
+            for i in range(Q)],
+        "in_box_features": in_box, "region_masks_equal_box_masks": masks_equal,
+        "same_plan_same_selected": bool(torch.equal(outs[-1].selected, outs[-2].selected)),
+        "bare_index_map": {
+            "run_s": bare_s, "equal_to_grid_run": bare_equal,
+            "grids_baked": [ctx_r.moving_grid is not None, ctx_r.fixed_grid is not None]},
+        "usable_candidates_per_query": usable.sum(1).tolist(),
+        "rank0_initial_error_mm": init_err.gather(1, rank0[:, None])[:, 0].tolist(),
+        "best_initial_error_mm": torch.where(
+            usable, init_err, torch.full_like(init_err, float("inf"))).min(1).values.tolist(),
+        "refined_candidates": int(refined.sum()),
+        "refined_under_1mm": int(good.sum()),
+        "refined_under_1mm_probability": spread(out.probability[good]),
+        "refined_under_1mm_unverified": out.probability[good & ~out.verified].tolist(),
+        "verified_over_1mm": int((out.verified & (final_err >= 1.0)).sum()),
+        "launches": launches,
+        "k1_shapes": [{"L": k[0], "M_f": k[1], "M_b": k[2], "launches": n} for k, n in k1_shapes],
+        "k2_shapes": k2_shape_rows(k2_shapes),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    phase("serve_reference", **rec)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"serve_reference: kernel {name} was never launched on the path")
+    if not any(8000 in k[1:] for k, _ in k1_shapes):
+        raise AssertionError(f"serve_reference: K1 saw no shape with 8000 matches: {k1_shapes}")
+    if k2_shapes.get((4096, 4096, 195, 1), 0) < 1:
+        raise AssertionError(f"serve_reference: no K2 launch at 4096 x 4096 x 195: {k2_shapes}")
+    if rec["verified"] < 12:
+        raise AssertionError(f"serve_reference: {rec['verified']} of {Q} queries verified, want 12")
+    if acc["median_gt_error_mm"] is None or acc["median_gt_error_mm"] >= 1.0:
+        raise AssertionError(f"serve_reference: median GT error {acc['median_gt_error_mm']} mm")
+    if not masks_equal:
+        raise AssertionError("serve_reference: region-grown masks differ from the box masks "
+                             "where the box holds fewer features than the target")
+    if not rec["same_plan_same_selected"]:
+        raise AssertionError("serve_reference: two runs with one plan selected differently")
+    if not bare_equal:
+        raise AssertionError("serve_reference: the run from the bare index maps differs "
+                             "from the run from the grids")
+    return launches, dict(k1_shapes)
+
+
+def whole_regions(sel: torch.Tensor, box: torch.Tensor, labels: torch.Tensor) -> bool:
+    """Every region is wholly in or wholly out of `sel` [L, N] among the
+    in-box features `box` [L, N]; `labels` [N] are compact region ids."""
+    L, N = sel.shape
+    index = labels.long()[None].expand(L, N)
+    n_reg = int(labels.max()) + 1
+
+    def per_region(mask):
+        return torch.zeros((L, n_reg), dtype=torch.int64, device=sel.device).scatter_add_(
+            1, index, mask.long())
+
+    taken, held = per_region(sel & box), per_region(box)
+    return bool(((taken == 0) | (taken == held)).all())
+
+
+def run_regions_bench(seed: int, card: str, bench):
+    """Phase 8: the bench pair with regions that cut the box, then the
+    refine-all, rigid, replay and grid-less entry points."""
+    import dataclasses
+
+    from lrr_tpu_torch.models.affine import Affine3D
+    from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.pipeline import registration
+    from lrr_tpu_torch.sampling import draw_sampling_plan
+    from lrr_tpu_torch.verify.svm import load_default_verifier
+
+    ctx, moving, fixed, cfg, meta = bench
+    dev = ctx.device
+    queries = np.asarray(meta["queries"], np.float32)
+    q = torch.as_tensor(queries, device=dev)
+    Q = len(queries)
+    true = Affine3D(*(torch.tensor(meta["true"][k], device=dev) for k in ("A", "t", "center")))
+    svm = load_default_verifier()
+    problems = []
+
+    # launches of each entry point on its own: the counts are read and set to
+    # 0 after every one of them
+    by_entry, k1_all = {}, {}
+
+    def close_entry(name: str, k1_on_path: bool):
+        n = dict(kernels.LAUNCHES)
+        by_entry[name] = {**n, "k1_shapes": [
+            {"L": k[0], "M_f": k[1], "M_b": k[2], "launches": c}
+            for k, c in sorted(kernels.K1_SHAPES.items(), key=lambda kv: -kv[1])]}
+        for k, c in kernels.K1_SHAPES.items():
+            k1_all[k] = k1_all.get(k, 0) + c
+        if k1_on_path and n["normal_equations"] <= 0:
+            problems.append(f"{name}: K1 was never launched")
+        if not k1_on_path and n["normal_equations"] != 0:
+            problems.append(f"{name}: K1 launched {n['normal_equations']} times off its path")
+        kernels.reset_launch_counts()
+
+    kernels.reset_launch_counts()
+    ctx_r, seg = timed_segment_pair(moving, fixed, ctx)
+    g = torch.Generator(device=dev).manual_seed(seed * 1000 + 800)
+    plan = draw_sampling_plan(
+        g, Q, cfg, ctx.moving_features.capacity, ctx.fixed_features.capacity)
+
+    # a target below what the boxes hold, so that growth stops inside them
+    cmask, _, enough, _, flat, q_lanes = pass1_lanes(ctx, q, cfg, plan)
+    live = (cmask & enough).reshape(-1)
+    box = registration._candidate_rois(ctx, flat, q_lanes, cfg)
+    box_counts = torch.cat([box[0].sum(-1)[live], box[1].sum(-1)[live]])
+    target = max(int(np.median(box_counts.cpu().numpy())) // 2, 1)
+    cfg_r = dataclasses.replace(
+        cfg, estimation=dataclasses.replace(cfg.estimation, target_region_features=target))
+    grown = registration._candidate_rois(ctx_r, flat, q_lanes, cfg_r)
+    lanes_differ = 0
+    for side, g_sel, b_sel, labels in (
+            ("moving", grown[0], box[0], ctx_r.moving_region_labels),
+            ("fixed", grown[1], box[1], ctx_r.fixed_region_labels)):
+        g_sel, b_sel = g_sel[live], b_sel[live]
+        lanes_differ += int((g_sel != b_sel).any(-1).sum())
+        if bool((g_sel & ~b_sel).any()):
+            problems.append(f"{side}: a region-grown set leaves its box")
+        if not whole_regions(g_sel, b_sel, labels):
+            problems.append(f"{side}: a region is split among in-box features")
+        if not bool((g_sel.sum(-1) >= torch.clamp(b_sel.sum(-1), max=target)).all()):
+            problems.append(f"{side}: a lane selects fewer than the target {target}")
+    if lanes_differ == 0:
+        problems.append("no lane's region-grown set differs from its box set")
+    fields = {
+        "segment": seg, "target_region_features": target,
+        "in_box_features": spread(box_counts), "selected_features": spread(
+            torch.cat([grown[0].sum(-1)[live], grown[1].sum(-1)[live]])),
+        "lane_sides_differing_from_box": lanes_differ, "lane_sides": 2 * int(live.sum()),
+    }
+    del grown, box
+    close_entry("segment_pair_and_rois", k1_on_path=False)
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # every candidate refined, against the staged run on the same plan
+    staged, staged_s = timed(registration.register_locations_staged, ctx_r, q, cfg_r, svm, plan)
+    close_entry("staged", k1_on_path=True)
+    every, every_s = timed(registration.register_locations, ctx_r, q, cfg_r, svm, plan)
+    close_entry("refine_all", k1_on_path=True)
+    both = (staged.selected >= 0) & (every.selected >= 0)
+    agree = int((staged.selected == every.selected)[both].sum())
+    if agree != int(both.sum()):
+        problems.append(f"refine-all agrees with staged on {agree} of {int(both.sum())} queries")
+    if not bool(every.refined.all()):
+        problems.append("refine-all left a candidate unrefined")
+    fields["refine_all"] = {
+        "staged_s": staged_s, "refine_all_s": every_s, "both_verified": int(both.sum()),
+        "selected_agree": agree, **acceptance_stats(every, queries, true),
+    }
+
+    # the bare index maps give the rows the baked grids hold
+    bare, bare_s = timed(
+        registration.register_locations_staged,
+        dataclasses.replace(ctx_r, fixed_grid=None, moving_grid=None), q, cfg_r, svm, plan)
+    bare_equal = all(
+        torch.equal(a, b) for a, b in (
+            (bare.selected, staged.selected), (bare.trans.A, staged.trans.A),
+            (bare.trans.t, staged.trans.t), (bare.probability, staged.probability)))
+    if not bare_equal:
+        problems.append("the run from the bare index maps differs from the run from the grids")
+    fields["bare_index_map"] = {"seconds": bare_s, "equal_to_grid_run": bare_equal}
+    close_entry("bare_index_map", k1_on_path=True)
+
+    # the rigid model on 8 queries
+    rigid_err, rigid_orth, rigid_s = [], [], []
+    for i in range(8):
+        (res, best, any_usable), s = timed(
+            registration.register_location_rigid, ctx_r, q[i], cfg_r, plan.query(i))
+        rigid_s.append(s)
+        if not bool(any_usable):
+            continue
+        eye = torch.eye(3, device=dev)
+        rigid_orth.append(float((res.trans.A @ res.trans.A.T - eye).abs().max()))
+        one = Affine3D(res.trans.A[None, None], res.trans.t[None, None],
+                       res.trans.center[None, None])
+        rigid_err.append(float(gt_errors(one, queries[i : i + 1], true)[0, 0]))
+    fields["rigid"] = {
+        "queries": 8, "usable": len(rigid_err), "seconds": rigid_s,
+        "gt_error_mm": rigid_err, "max_orthogonality_error": max(rigid_orth, default=None),
+    }
+    if not rigid_err or float(np.median(rigid_err)) >= 1.5:
+        problems.append(f"rigid: median GT error {rigid_err} not under 1.5 mm")
+    if rigid_orth and max(rigid_orth) > 1e-5:
+        problems.append(f"rigid: rotation off orthogonal by {max(rigid_orth)}")
+    close_entry("rigid", k1_on_path=False)  # its 6 x 6 system is plain PyTorch
+
+    # one accepted candidate replayed with a callback
+    accepted = torch.nonzero(staged.selected >= 0)[:, 0]
+    if accepted.numel() == 0:
+        problems.append("no accepted candidate to replay")
+    else:
+        i = int(accepted[0])
+        c = int(staged.selected[i])
+        calls = []
+        res = registration.watch_candidate(
+            ctx_r, q[i], cfg_r, plan.query(i), c, lambda *a: calls.append(a))
+        fields["watch"] = {
+            "query": i, "candidate": c, "callbacks": len(calls),
+            "iterations": int(res.iterations),
+            "max_abs_diff_A_to_served": float((res.trans.A - staged.trans.A[i, c]).abs().max()),
+        }
+        if len(calls) != int(res.iterations):
+            problems.append(f"watch: {len(calls)} callbacks for {int(res.iterations)} iterations")
+        close_entry("watch", k1_on_path=True)
+
+    # `launches` and `k1_shapes` of the line are the four served runs' alone
+    served, served_shapes = serve_and_check(
+        "regions_bench", ctx_r, cfg_r, meta, seed, card, on_path=("normal_equations",),
+        problems=problems, launches_by_entry=by_entry, **fields)
+    if problems:
+        raise AssertionError("regions_bench: " + "; ".join(problems))
+    by_entry["served"] = served
+    for k, c in served_shapes.items():
+        k1_all[k] = k1_all.get(k, 0) + c
+    total = {name: sum(e[name] for e in by_entry.values()) for name in served}
+    return total, k1_all, by_entry
 
 
 def main() -> None:
@@ -651,16 +1114,35 @@ def main() -> None:
     k2 = check_k2(rng, dev, timer)
     phase("kernels", card=card, launch_floor_ms=floor_ms, normal_equations=k1, knn=k2)
 
-    launches, k1_main = run_slice(args.seed, card)
-    launches5, _ = run_stage1_bench(args.seed, card)
-    launches6 = run_stage1_reference(card)
-    for name in launches:
-        launches[name] += launches5[name] + launches6[name]
+    launches4, shapes4 = run_slice(args.seed, card)
+    (launches5, shapes5), bench = run_stage1_bench(args.seed, card)
+    launches7, shapes7 = run_serve_reference(args.seed, card, run_stage1_reference(card))
+    launches8, shapes8, entries8 = run_regions_bench(args.seed, card, bench)
+    del bench
+    by_path = {"slice": launches4, "stage1_bench": launches5,
+               "stage1_reference+serve_reference": launches7, "regions_bench": launches8,
+               "regions_bench_by_entry": {
+                   name: {k: e[k] for k in launches4} for name, e in entries8.items()}}
+    launches = {name: launches4[name] + launches5[name] + launches7[name] + launches8[name]
+                for name in launches4}
 
-    # each kernel at the shape the serving path gives it most often
-    if k1_key(*k1_main, True) not in k1:
-        k1[k1_key(*k1_main, True)] = measure_k1(rng, dev, timer, *k1_main, True)
-        phase("kernels_main_path_shape", card=card, normal_equations=k1[k1_key(*k1_main, True)])
+    # K1 against its plain version at every shape a path gave it (as row
+    # views, the layout the ICP hands over) that phase 3 did not hold
+    path_shapes: dict[tuple[int, int, int], dict[str, int]] = {}
+    for path, shapes in (("slice", shapes4), ("stage1_bench", shapes5),
+                         ("serve_reference", shapes7), ("regions_bench", shapes8)):
+        for shape, n in shapes.items():
+            path_shapes.setdefault(shape, {})[path] = n
+    added = {}
+    for shape in sorted(path_shapes):
+        if k1_key(*shape, True) not in k1:
+            k1[k1_key(*shape, True)] = added[k1_key(*shape, True)] = measure_k1(
+                rng, dev, timer, *shape, True)
+    phase("kernels_path_shapes", card=card, normal_equations=added,
+          launches={k1_key(*shape, True): n for shape, n in sorted(path_shapes.items())})
+
+    # each kernel at the shape the serving path (phase 4) gives it most often
+    k1_main = max(shapes4, key=shapes4.get)
     k1m, k2m, k2r = k1[k1_key(*k1_main, True)], k2["128x128x195_k1"], k2["4096x4096x195_k1"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
@@ -668,13 +1150,17 @@ def main() -> None:
          "source": "lrr_tpu_torch/csrc/normal_equations.cu",
          "replaces": "lrr_tpu/ops/pallas_kernels.py:212",
          "launches": launches["normal_equations"], **{k: k1m[k] for k in keys},
-         "shape": k1_key(*k1_main, True)},
+         "shape": k1_key(*k1_main, True),
+         "other_path_shapes": {
+             k1_key(*shape, True): {**{k: k1[k1_key(*shape, True)][k] for k in keys},
+                                    "launches": sum(n.values()), "launches_by_path": n}
+             for shape, n in sorted(path_shapes.items()) if shape != k1_main}},
         {"name": "knn", "route": "cuda", "source": "lrr_tpu_torch/csrc/knn.cu",
          "replaces": "lrr_tpu/ops/pallas_kernels.py:108",
          "launches": launches["knn"], **{k: k2r[k] for k in keys},
          "shape": "4096x4096x195_k1",
          "other_path_shapes": {"128x128x195_k1": {k: k2m[k] for k in keys}}},
-    ], "launch_floor_ms": floor_ms}), flush=True)
+    ], "launch_floor_ms": floor_ms, "launches_by_path": by_path}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,13 @@ convergence, oscillation and the match-count doubling schedule.
 
 Per-match tensors are component-major, [L, C, M].  The TPU-only layouts of
 the JAX package (the [V/16, 128] packed grid, `_take_rows8`, `flat_take`)
-are not ported: the grid is the plain [V, 8] row table.
+are not ported: the grid is the plain [V, 8] row table.  A map too large
+for a baked grid is served from the bare index map: the voxel's feature
+index, then that feature's packed row.
+
+`model="rigid"` swaps the 12-dof solve for a 6-dof small-angle increment on
+the mapped points (cdcl_estimation.txx:111-165); its 6x6 system is plain
+PyTorch and does not go through K1.
 """
 
 from __future__ import annotations
@@ -29,13 +35,19 @@ import math
 import torch
 
 from lrr_tpu_torch.config import EstimationConfig
-from lrr_tpu_torch.models.affine import Affine3D, covariance_unnormalize, pinv_hermitian
+from lrr_tpu_torch.models.affine import (
+    Affine3D, covariance_unnormalize, mm3, mv3, pinv_hermitian,
+)
+from lrr_tpu_torch.models.rigid import orthogonalize, skew
 from lrr_tpu_torch.ops import kernels, robust
 from lrr_tpu_torch.ops.voronoi import lookup, voxel_ids
 from lrr_tpu_torch.sampling import ICPDraws
 from lrr_tpu_torch.types import SHEET, TUBE, FeatureSet
 
 WEIGHT_FLOOR = 1e-4  # accumulation skip threshold (symmetric .txx:469,576)
+# maps above this voxel count get no baked NN-row grid ([V, 8] fp32: 2 GB at
+# 64M voxels) and are served from the bare index map
+FUSED_GRID_MAX_VOXELS = 64 * 1024 * 1024
 SCALE_FLOOR = 0.005  # (symmetric .txx:701,704)
 
 
@@ -254,16 +266,21 @@ def _apply_packed(trans: Affine3D, x: torch.Tensor) -> torch.Tensor:
 
 def _sample_matches_packed(
     src: _PackedSource,
-    grid: torch.Tensor,  # [V, 8]
+    grid: torch.Tensor | None,  # [V, 8], or None: match through the index map
     vor: VoronoiGrid,
     trans: Affine3D,
     number: torch.Tensor,  # [L]
     cap: int,
     offset: torch.Tensor,  # [L] raw offsets
+    *,
+    dst_rows: torch.Tensor | None = None,  # [N, 8] target rows, for grid None
 ) -> PackedMatches:
     """A window of `cap` source rows per lane, mapped through `trans` and
     matched by one row gather from the baked grid (empty voxels carry tag 0
-    and drop out through the mask)."""
+    and drop out through the mask).  Without a grid the voxel's feature
+    index is read from the map and the row taken from `dst_rows`; an empty
+    voxel gets the zero row the grid would hold, so both give the same
+    rows."""
     cap = min(cap, src.order.shape[1])
     idx = _window(src.order, src.valid_count, offset, cap)
     rows = src.rows[idx]  # [L, cap, 8]
@@ -280,7 +297,13 @@ def _sample_matches_packed(
     mapped = _apply_packed(trans, fxyz)
     ids = voxel_ids(tuple(vor.index_vol.shape), vor.origin, vor.spacing,
                     mapped.transpose(1, 2))
-    to_row = grid[ids].permute(0, 2, 1)  # [L, 8, cap]
+    if grid is not None:
+        to_rows = grid[ids]
+    else:
+        nn = vor.index_vol.reshape(-1)[ids]
+        to_rows = dst_rows[torch.clamp(nn, min=0).long()]
+        to_rows = torch.where((nn >= 0)[..., None], to_rows, torch.zeros_like(to_rows))
+    to_row = to_rows.permute(0, 2, 1)  # [L, 8, cap]
     ok = sel & (to_row[:, 7] > 0.5)
     return PackedMatches(
         fxyz=fxyz, fstr=win[:, 3], txyz=to_row[:, 0:3], tstr=to_row[:, 3],
@@ -517,6 +540,80 @@ def _estimate_ls_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationConfig):
     return new_w, cov_w, fwd, bwd
 
 
+def _normal_equations_rigid_packed(
+    z: torch.Tensor,  # [L, 3, M] mapped source points, centred at the rotation centre
+    b: torch.Tensor,  # [L, 3, M] residual targets (q - mapped)
+    pdir: torch.Tensor,  # [L, 3, M] projector direction (decomposed P)
+    c1: torch.Tensor,  # [L, M]
+    c2: torch.Tensor,  # [L, M]
+    weight: torch.Tensor,  # [L, M]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """6x6 normal equations [L, 6, 6], [L, 6] for a small-angle rigid
+    increment (omega, dt) on already-mapped points (cdcl_estimation.txx:
+    111-134; cdcl_trans_rigid3d.cxx:157-160).  Residual model
+    e = (omega x z + dt) - b with J = [-[z]x | I]; with P idempotent,
+    AtA = G G^T for G = sqrt(w) P J.  Multiply-adds only."""
+    zero, one = torch.zeros_like(z[:, 0]), torch.ones_like(z[:, 0])
+    jcols = [
+        torch.stack([zero, -z[:, 2], z[:, 1]], 1),
+        torch.stack([z[:, 2], zero, -z[:, 0]], 1),
+        torch.stack([-z[:, 1], z[:, 0], zero], 1),
+        torch.stack([one, zero, zero], 1),
+        torch.stack([zero, one, zero], 1),
+        torch.stack([zero, zero, one], 1),
+    ]
+    sw = torch.sqrt(torch.clamp(weight, min=0.0))
+    rows = []
+    for col in jcols:
+        dot = pdir[:, 0] * col[:, 0] + pdir[:, 1] * col[:, 1] + pdir[:, 2] * col[:, 2]
+        pj = c1[:, None] * col + (c2 * dot)[:, None] * pdir
+        rows.append(sw[:, None] * pj)
+    G = torch.stack(rows, 1).flatten(2)  # [L, 6, 3M]
+    AtA = (G[:, :, None, :] * G[:, None, :, :]).sum(-1)
+    y = (sw[:, None] * b).flatten(1)
+    Atb = (G * y[:, None, :]).sum(-1)
+    return AtA, Atb
+
+
+def _estimate_ls_rigid_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationConfig):
+    """Rigid (6-dof) twin of `_estimate_ls_packed`: the same robust
+    weighting, then one small-angle increment on the mapped points,
+    orthogonalised and recomposed onto the current transform
+    (cdcl_estimation.txx:111-165, cdcl_trans_rigid3d.h:103-104).  Both
+    directions constrain the same forward increment.  The 6x6 system is
+    plain PyTorch: K1 computes the 12x12 affine one only."""
+    fwd, bwd, *_ = _weighted_matches_packed(trans, fwd, bwd, use_muse, cfg)
+    y_f = _apply_packed(trans, fwd.fxyz)
+    y_b = _apply_packed(trans, bwd.txyz)
+
+    # rotation centre: the weighted centroid of all mapped points
+    wsum = fwd.weight.sum(-1) + bwd.weight.sum(-1)
+    c = (
+        (y_f * fwd.weight[:, None]).sum(-1) + (y_b * bwd.weight[:, None]).sum(-1)
+    ) / torch.clamp(wsum, min=1e-30)[:, None]
+
+    AtA_f, Atb_f = _normal_equations_rigid_packed(
+        y_f - c[:, :, None], fwd.txyz - y_f, fwd.tdir, *kernels.c1c2(fwd.ttag), fwd.weight
+    )
+    AtA_b, Atb_b = _normal_equations_rigid_packed(
+        y_b - c[:, :, None], bwd.fxyz - y_b, bwd.fdir, *kernels.c1c2(bwd.ftag), bwd.weight
+    )
+    cov6 = pinv_hermitian(AtA_f + AtA_b)
+    x = (cov6 * (Atb_f + Atb_b)[:, None, :]).sum(-1)
+    omega, dt = x[:, :3], x[:, 3:]
+
+    # recompose: new(x) = Rinc (T(x) - c) + c + dt
+    eye = torch.eye(3, dtype=x.dtype, device=x.device)
+    Rinc = orthogonalize(eye + skew(omega))
+    new = Affine3D(
+        A=mm3(Rinc, trans.A), t=mv3(Rinc, trans.t - c) + c + dt, center=trans.center
+    )
+    # the 6-dof increment covariance sits in the top-left of the [12, 12] slot
+    cov12 = torch.zeros(x.shape[:1] + (12, 12), dtype=x.dtype, device=x.device)
+    cov12[:, :6, :6] = cov6
+    return new, cov12, fwd, bwd
+
+
 def _staged_caps(cfg: EstimationConfig) -> list[int]:
     """Static per-level match capacities of the doubling schedule
     (1000 -> 2000 -> ... -> all, symmetric .txx:423-433), 128-aligned."""
@@ -541,8 +638,10 @@ def register_candidate(
     *,
     moving_targets: FeatureSet,
     fixed_targets: FeatureSet,
-    fixed_grid: torch.Tensor,
-    moving_grid: torch.Tensor,
+    fixed_grid: torch.Tensor | None,
+    moving_grid: torch.Tensor | None,
+    model: str = "affine",
+    progress_callback=None,
 ) -> ICPResult:
     """Run the full symmetric robust ICP from L initialisations at once.
 
@@ -550,7 +649,24 @@ def register_candidate(
     per-lane mask [L, N] (the candidate's ROI).  `moving_targets`/
     `fixed_targets` are the match TARGET sets the Voronoi maps index into
     (itkLocationRegistration.cxx:1645-1650), and `fixed_grid`/`moving_grid`
-    their baked NN-row grids (`bake_target_grid`)."""
+    their baked NN-row grids (`bake_target_grid`), or None for a map above
+    `FUSED_GRID_MAX_VOXELS`: matching then goes through the bare index map
+    (no grid is baked per call, which would sweep the whole map).
+
+    `model` is "affine" (12 dof, kernel K1) or "rigid" (6-dof small-angle
+    increments, BASELINE config 3); sampling, robust weighting, convergence
+    and the doubling schedule are the same.  `progress_callback(iteration,
+    weighted_error, number_matches)` is called with Python numbers once for
+    every iteration a lane runs (the reference's per-iteration display
+    callback, cdcl_estimation_abs.h:50-55): an observability tool, one
+    device read an iteration."""
+    if model not in ("affine", "rigid"):
+        raise ValueError(f"unknown transform model {model!r}")
+    if model == "rigid":
+        # keypoint-frame initialisations are only approximately orthogonal:
+        # project onto the nearest rotation before refining
+        init = dataclasses.replace(init, A=orthogonalize(init.A))
+    estimate_ls = _estimate_ls_packed if model == "affine" else _estimate_ls_rigid_packed
     L = init.A.shape[0]
     src_m = _pack_source(draws.scores_m, _pack_features(moving_targets), moving.mask)
     src_f = _pack_source(draws.scores_f, _pack_features(fixed_targets), fixed.mask)
@@ -565,15 +681,13 @@ def register_candidate(
         it = torch.clamp(c.iteration, max=n_offsets - 1)[:, None]
         fwd = _sample_matches_packed(
             src_m, fixed_grid, fixed_vor, c.trans, c.number_matches, cap,
-            draws.offsets_f.gather(1, it)[:, 0],
+            draws.offsets_f.gather(1, it)[:, 0], dst_rows=src_f.rows,
         )
         bwd = _sample_matches_packed(
             src_f, moving_grid, moving_vor, c.trans.inverse(), c.number_matches, cap,
-            draws.offsets_b.gather(1, it)[:, 0],
+            draws.offsets_b.gather(1, it)[:, 0], dst_rows=src_m.rows,
         )
-        new_trans, cov_w, fwd_w, bwd_w = _estimate_ls_packed(
-            c.trans, fwd, bwd, use_muse, cfg
-        )
+        new_trans, cov_w, fwd_w, bwd_w = estimate_ls(c.trans, fwd, bwd, use_muse, cfg)
         we_after = _weighted_error_packed(new_trans, fwd_w)
         we_bwd = _weighted_error_packed(new_trans.inverse(), bwd_w)
 
@@ -635,8 +749,17 @@ def register_candidate(
 
     # iteration 0 (with the MUSE scale) is peeled off and runs on every lane;
     # then one loop per doubling level with that level's static capacity
+    def report(active: torch.Tensor, before: _Carry, after: _Carry) -> None:
+        for lane in torch.nonzero(active)[:, 0].tolist():
+            progress_callback(
+                int(before.iteration[lane]), float(after.weighted_error[lane]),
+                int(before.number_matches[lane]),
+            )
+
     caps = _staged_caps(cfg)
     c = make_body(caps[0], True, c0)
+    if progress_callback is not None:
+        report(c0.valid, c0, c)
     for k, cap in enumerate(caps):
         last = k == len(caps) - 1
         while True:
@@ -645,7 +768,10 @@ def register_candidate(
                 active = active & (c.number_matches <= cap)
             if not bool(active.any()):
                 break
-            c = _where(active, make_body(cap, False, c), c)
+            new = make_body(cap, False, c)
+            if progress_callback is not None:
+                report(active, c, new)
+            c = _where(active, new, c)
 
     # final angle statistics from one full-payload weighted pass at the final
     # transform (the JAX package solves the system here too and discards it;

@@ -1,16 +1,21 @@
-"""Stage 1 (`prepare_pair`) and the stage 2+3 serving path
+"""Stage 1 (`prepare_pair`, `segment_pair`) and the stage 2+3 entry points
 (lrr_tpu/pipeline/registration.py).
 
 `prepare_pair` takes the two volumes to a `PairContext`: features,
 keypoints, descriptors, Voronoi maps, the descriptor-NN table and the baked
-NN-row grids, all on the volumes' device.
+NN-row grids, all on the volumes' device.  `segment_pair` adds the
+watershed regions: with them a candidate's feature subset is a union of
+whole regions grown inside the ROI box instead of the plain box.
 
 Per query location: candidate generation by descriptor indexing,
 keypoint-frame initialisation, ROI feature selection, PASS-1 ranking by
 initial angle agreement plus median residual, then waves of symmetric robust
 ICP, backward covariance, decision measurements and SVM verification; the
 first verified candidate in rank order wins (itkLocationRegistration.cxx:
-2332-2528).  `register_locations_staged` is the serving entry point.
+2332-2528).  `register_locations_staged` is the serving entry point;
+`register_locations` / `register_location` refine every candidate;
+`register_location_rigid` refines the best-ranked one with the rigid model
+and `watch_candidate` replays one refinement with a per-iteration callback.
 
 A context can also come from an artifact that the JAX package saved
 (`pipeline.artifacts.load_pair_context`).  Randomness comes from a
@@ -21,12 +26,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
 
 from lrr_tpu_torch.config import PipelineConfig
 from lrr_tpu_torch.estimation.icp import (
+    FUSED_GRID_MAX_VOXELS,
     ICPResult,
     VoronoiGrid,
     bake_target_grid,
@@ -51,13 +58,11 @@ from lrr_tpu_torch.matching.indexing import (
 from lrr_tpu_torch.models.affine import Affine3D
 from lrr_tpu_torch.ops.descriptors import compute_descriptors
 from lrr_tpu_torch.ops.voronoi import build_feature_voronoi
+from lrr_tpu_torch.ops.watershed import watershed_segmentation
+from lrr_tpu_torch.pipeline.regions import compact_feature_labels, select_features_by_labels
 from lrr_tpu_torch.sampling import SamplingPlan
 from lrr_tpu_torch.types import DescriptorSet, FeatureSet, Volume
 from lrr_tpu_torch.verify.svm import SvmModel, predict_probability, scale_measurements
-
-# maps above this voxel count get no baked NN-row grid ([V, 8] fp32: 2 GB at
-# 64M voxels)
-FUSED_GRID_MAX_VOXELS = 64 * 1024 * 1024
 
 # consecutive low-yield waves (< 1/4 of active queries resolved) after which
 # a wave refines every remaining rank at once
@@ -77,9 +82,15 @@ class PairContext:
     fixed_vor: VoronoiGrid
     nn_table: tuple[torch.Tensor, torch.Tensor]  # (moving index, distance) [Kf]
     # [V, 8] baked NN rows (icp.bake_target_grid); None for a map above
-    # FUSED_GRID_MAX_VOXELS, which this package cannot serve from yet
+    # FUSED_GRID_MAX_VOXELS, which is served from the bare index map
     fixed_grid: torch.Tensor | None
     moving_grid: torch.Tensor | None
+    # optional per-feature compact watershed region ids (int32 [N]); when
+    # present, candidate feature selection grows whole regions around the
+    # query inside the ROI box (FeaturesInRegions, itkLocationRegistration
+    # .cxx:1363-1522); see `attach_regions`
+    moving_region_labels: torch.Tensor | None = None
+    fixed_region_labels: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -125,9 +136,34 @@ def prepare_pair(moving: Volume, fixed: Volume, cfg: PipelineConfig) -> PairCont
     return assemble_pair_context(fs_m, fs_f, ds_m, ds_f, mv, fv)
 
 
+def attach_regions(ctx: PairContext, moving_labels: Volume, fixed_labels: Volume) -> PairContext:
+    """Attach watershed segmentations (label volumes) to a pair context:
+    per-feature compact region ids, gathered once here so the per-candidate
+    work is capacity-sized (the reference reads the label volume and grows
+    regions per candidate, itkLocationRegistration.cxx:657, 1363-1522)."""
+    ml = compact_feature_labels(
+        ctx.moving_features, moving_labels.data, moving_labels.origin, moving_labels.spacing
+    )
+    fl = compact_feature_labels(
+        ctx.fixed_features, fixed_labels.data, fixed_labels.origin, fixed_labels.spacing
+    )
+    return dataclasses.replace(ctx, moving_region_labels=ml, fixed_region_labels=fl)
+
+
+def segment_pair(moving: Volume, fixed: Volume, ctx: PairContext) -> PairContext:
+    """Watershed oversegmentation (WatershedSegmentation1.cxx canonical
+    parameters) of both volumes, attached to the context."""
+    ml = watershed_segmentation(moving.data)
+    fl = watershed_segmentation(fixed.data)
+    return attach_regions(
+        ctx, Volume(ml, moving.origin, moving.spacing), Volume(fl, fixed.origin, fixed.spacing)
+    )
+
+
 @dataclasses.dataclass
 class LocationResult:
-    """Per-query output; leading dims [Q, C] (C = candidates)."""
+    """Per-query output; leading dims [Q, C] (C = candidates), or [C] from
+    `register_location`."""
 
     trans: Affine3D
     covar: torch.Tensor
@@ -156,20 +192,33 @@ def _in_box(xyz: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tens
 
 
 def _candidate_rois(ctx: PairContext, init: Affine3D, query: torch.Tensor, cfg):
-    """ROI masks + feature-count gate for L candidates (FeaturesInROIs,
-    itkLocationRegistration.cxx:1324-1360,1632; box path).  The moving-space
-    query point is the transform center."""
+    """ROI masks + feature-count gate for L candidates.  Without region
+    labels: plain ROI boxes (FeaturesInROIs, itkLocationRegistration.cxx:
+    1324-1360,1632).  With them: whole watershed regions grown around the
+    query inside the box until >= target_region_features (FeaturesInRegions,
+    .cxx:1363-1522).  The measurement box stays the 50 mm box either way.
+    The moving-space query point is the transform center."""
     ecfg = cfg.estimation
     half = ecfg.roi_mm / 2.0
     qm = init.center
     moving_lo, moving_hi = qm - half, qm + half
     fixed_lo, fixed_hi = query - half, query + half
-    m_sel = ctx.moving_features.mask[None] & _in_box(
-        ctx.moving_features.xyz, moving_lo, moving_hi
-    )
-    f_sel = ctx.fixed_features.mask[None] & _in_box(
-        ctx.fixed_features.xyz, fixed_lo, fixed_hi
-    )
+    if ctx.moving_region_labels is not None:
+        m_sel = select_features_by_labels(
+            ctx.moving_features, ctx.moving_region_labels, qm,
+            ecfg.target_region_features, box_lo=moving_lo, box_hi=moving_hi,
+        )
+        f_sel = select_features_by_labels(
+            ctx.fixed_features, ctx.fixed_region_labels, query,
+            ecfg.target_region_features, box_lo=fixed_lo, box_hi=fixed_hi,
+        )
+    else:
+        m_sel = ctx.moving_features.mask[None] & _in_box(
+            ctx.moving_features.xyz, moving_lo, moving_hi
+        )
+        f_sel = ctx.fixed_features.mask[None] & _in_box(
+            ctx.fixed_features.xyz, fixed_lo, fixed_hi
+        )
     enough = (m_sel.sum(-1) >= ecfg.min_region_features) & (
         f_sel.sum(-1) >= ecfg.min_region_features
     )
@@ -204,7 +253,8 @@ def _candidate_initial_angle(
 
     The window is cut to `initial_matches` rows: the JAX package samples
     `max_matches` and masks every row past `initial_matches`, so the rows
-    cut here never count."""
+    cut here never count.  LRR_RANK_KEY=angle in the environment gives the
+    reference's pure angle key (radians), for A/B runs."""
     ecfg = cfg.estimation
     order0, valid0 = _source_permutation(scores, m_sel)
     number = torch.full_like(valid0, ecfg.initial_matches)
@@ -216,6 +266,8 @@ def _candidate_initial_angle(
     )
     sheet0, tube0 = _angle_stats_packed(init, s0, s0.weight)
     ang = 0.5 * (sheet0 + tube0)
+    if os.environ.get("LRR_RANK_KEY") == "angle":
+        return ang
     r2 = _residual2_packed(init, _as_packed_matches(s0))
     med_res = torch.sqrt(_nanmedian(torch.where(s0.mask, r2, torch.full_like(r2, math.nan))))
     # empty samples rank last among usable but stay finite
@@ -247,6 +299,12 @@ def _refine_candidate(
     )
     meas = decision_measurements(res, cov_b, moving_lo, fixed_lo, ecfg.roi_mm)
     return res, meas
+
+
+def _no_tf32() -> None:
+    """H3: nothing on these paths may run in TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def _pass1_fn(ctx: PairContext, queries: torch.Tensor, cfg, plan: SamplingPlan):
@@ -313,16 +371,7 @@ def register_locations_staged(
     all C candidates.  Ranks no wave reached are left "never refined"
     (verified False, probability 0).  `plan` holds every random draw
     (`sampling.draw_sampling_plan`)."""
-    # H3: nothing on this path may run in TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    if ctx.fixed_grid is None or ctx.moving_grid is None:
-        raise ValueError(
-            "register_locations_staged: this context has a Voronoi map above "
-            f"{FUSED_GRID_MAX_VOXELS} voxels and so no baked NN-row grid; serving "
-            "from the bare index map is not ported"
-        )
+    _no_tf32()
     dev = ctx.device
     queries = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=dev))
     svm = svm.to(dev)
@@ -456,3 +505,162 @@ def register_locations_staged(
         initial_rms=dev_t(initial_rms_out),
         final_rms=dev_t(final_rms_out),
     )
+
+
+def register_locations(
+    ctx: PairContext,
+    queries: torch.Tensor,  # [Q, 3]
+    cfg: PipelineConfig,
+    svm: SvmModel,
+    plan: SamplingPlan,
+    lane_budget: int = 64,
+) -> LocationResult:
+    """Batched registration that refines EVERY candidate of every query
+    (Q x C lanes, `lane_budget` lanes a batch) and selects afterwards: the
+    first verified candidate in ascending PASS-1 key order over the
+    candidates still usable after refinement (valid, not oscillating).
+    Maximal information at ~C times the staged path's work; `refined` is
+    all ones.  The draws are the staged path's, so one plan serves both."""
+    _no_tf32()
+    dev = ctx.device
+    queries = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=dev))
+    svm = svm.to(dev)
+    Q = queries.shape[0]
+    C = cfg.indexing.num_candidates
+    cmask, inits, angles, enough, qm, _, kp_m, kp_f = _pass1_fn(ctx, queries, cfg, plan)
+
+    lanes = torch.arange(Q, device=dev).repeat_interleave(C)
+    cands = torch.arange(C, device=dev).repeat(Q)
+    step = max(lane_budget, 1)
+    parts = [
+        _wave_fn(ctx, queries, cfg, svm, inits, plan, lanes[i : i + step], cands[i : i + step])
+        for i in range(0, Q * C, step)
+    ]
+
+    def gather(get) -> torch.Tensor:
+        x = torch.cat([get(*part) for part in parts])
+        return x.reshape((Q, C) + x.shape[1:])
+
+    def res(name):
+        return gather(lambda r, m, p: getattr(r, name))
+
+    probs = gather(lambda r, m, p: p)
+    valid, oscillated = res("valid"), res("oscillated")
+    usable = cmask & enough & valid & ~oscillated
+    verified = usable & (probs > cfg.verify.accept_probability)
+    rank = torch.sort(
+        torch.where(usable, angles, torch.full_like(angles, math.inf)), dim=1, stable=True
+    ).indices
+    in_order = verified.gather(1, rank)
+    first = in_order.to(torch.int8).argmax(1)
+    selected = torch.where(
+        in_order.any(1), rank.gather(1, first[:, None])[:, 0], torch.full_like(first, -1)
+    )
+    return LocationResult(
+        trans=Affine3D(
+            A=gather(lambda r, m, p: r.trans.A), t=gather(lambda r, m, p: r.trans.t),
+            center=gather(lambda r, m, p: r.trans.center),
+        ),
+        covar=res("covar"), measurements=gather(lambda r, m, p: m), probability=probs,
+        verified=verified, converged=res("converged"), valid=valid, oscillated=oscillated,
+        enough_features=enough, candidate_mask=cmask, initial_angle=angles, rank=rank,
+        selected=selected, query_mapped=qm, refined=torch.ones_like(verified),
+        keypoint_moving=kp_m, keypoint_fixed=kp_f,
+        initial_rms=res("initial_rms"), final_rms=res("final_rms"),
+    )
+
+
+def _first(obj):
+    """Entry 0 along the leading dim of every tensor of a result dataclass."""
+    if isinstance(obj, torch.Tensor):
+        return obj[0]
+    return type(obj)(**{f.name: _first(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+
+
+def register_location(
+    ctx: PairContext,
+    query: torch.Tensor,  # [3]
+    cfg: PipelineConfig,
+    svm: SvmModel,
+    plan: SamplingPlan,  # [1, C]
+) -> LocationResult:
+    """Full stage 2+3 for one query location, every candidate refined; the
+    result's fields lead with [C] and `selected` is a scalar."""
+    query = torch.as_tensor(query, dtype=torch.float32, device=ctx.device)
+    return _first(register_locations(ctx, query[None], cfg, svm, plan))
+
+
+def _one_candidate(ctx, query, cfg, plan: SamplingPlan, candidate, inits: Affine3D):
+    """(init, ROI sets, ICP draws) of candidate `candidate` of a one-query
+    plan, as one lane."""
+    zero = torch.zeros(1, dtype=torch.long, device=ctx.device)
+    cand = torch.as_tensor(candidate, device=ctx.device).reshape(1)
+    init = Affine3D(inits.A[zero, cand], inits.t[zero, cand], inits.center[zero, cand])
+    m_sel, f_sel, _, _, _, _ = _candidate_rois(ctx, init, query[None], cfg)
+    moving_roi = dataclasses.replace(ctx.moving_features, mask=m_sel)
+    fixed_roi = dataclasses.replace(ctx.fixed_features, mask=f_sel)
+    return init, moving_roi, fixed_roi, plan.select(zero, cand).icp()
+
+
+def register_location_rigid(
+    ctx: PairContext,
+    query: torch.Tensor,  # [3]
+    cfg: PipelineConfig,
+    plan: SamplingPlan,  # [1, C]
+):
+    """BASELINE config 3: Rigid3D ICP refinement from a single indexed
+    initialisation.  Candidate generation and PASS-1 ranking as in the
+    affine entry points (itkLocationRegistration.cxx:2230-2319), then ONE rigid
+    refinement of the best-ranked usable candidate by the incremental
+    small-angle scheme (cdcl_estimation.txx:111-165).  Returns (ICPResult
+    of that one lane, best candidate index, any usable); the result's A is
+    a rotation by construction.  The refinement samples with the plan's
+    rigid stream, PASS 1 with the candidates' own."""
+    _no_tf32()
+    query = torch.as_tensor(query, dtype=torch.float32, device=ctx.device)
+    cmask, inits, angles, enough, *_ = _pass1_fn(ctx, query[None], cfg, plan)
+    usable = (cmask & enough)[0]
+    best = torch.argmin(torch.where(usable, angles[0], torch.full_like(angles[0], math.inf)))
+    init, moving_roi, fixed_roi, _ = _one_candidate(ctx, query, cfg, plan, best, inits)
+    res = register_candidate(
+        moving_roi, fixed_roi, ctx.fixed_vor, ctx.moving_vor, init, cfg.estimation,
+        plan.rigid(),
+        moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
+        fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid, model="rigid",
+    )
+    return _first(res), best, usable.any()
+
+
+def watch_candidate(
+    ctx: PairContext,
+    query: torch.Tensor,  # [3]
+    cfg: PipelineConfig,
+    plan: SamplingPlan,  # [1, C]
+    candidate: int,
+    progress_callback,
+) -> ICPResult:
+    """Replay ONE candidate's refinement with a per-iteration host callback
+    `(iteration, weighted_error, number_matches)`: the headless analogue of
+    the reference's interactive display callback and LAST_ITER replay
+    (cdcl/display/cdcl_display.h:16, itkLocationRegistration.cxx:2550-2581).
+    It samples with the candidate's own stream of `plan`, as
+    `register_location` and the staged waves do, so the replayed refinement
+    is the production refinement with observability added.  Returns the
+    replayed ICPResult of that one lane."""
+    _no_tf32()
+    query = torch.as_tensor(query, dtype=torch.float32, device=ctx.device)
+    cands = generate_candidates(
+        query[None], ctx.moving_descriptors, ctx.fixed_descriptors, cfg.indexing,
+        nn_table=ctx.nn_table,
+    )
+    inits = initial_transforms(
+        cands, ctx.moving_descriptors, ctx.fixed_descriptors, query[None]
+    )
+    init, moving_roi, fixed_roi, draws = _one_candidate(ctx, query, cfg, plan, candidate, inits)
+    res = register_candidate(
+        moving_roi, fixed_roi, ctx.fixed_vor, ctx.moving_vor, init, cfg.estimation, draws,
+        moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
+        fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid,
+        progress_callback=progress_callback,
+    )
+    return _first(res)

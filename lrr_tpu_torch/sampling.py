@@ -15,6 +15,10 @@ Draws and where lrr_tpu makes them:
   icp_stats_offset_f/b        final stats windows (icp.py:577, ks_f/ks_b :1183)
   cov_scores_f/m, cov_offset_b/f
                               backward_covariance (measurements.py:87)
+  rigid_*                     the one refinement of register_location_rigid:
+                              a stream of its own, one per query, beside the
+                              C candidate streams (registration.py:839-840,
+                              the last of C + 1 keys)
 
 Scores are uniform [0, 1) float32.  Offsets are stored as raw non-negative
 int64 and reduced modulo the lane's valid count where they are used, which
@@ -58,8 +62,9 @@ class CovarianceDraws:
 
 @dataclasses.dataclass
 class SamplingPlan:
-    """Draws for Q queries x C candidates; every field has leading dims
-    [Q, C] (or [L] after `select`)."""
+    """Draws for Q queries x C candidates; the per-candidate fields have
+    leading dims [Q, C] (or [L] after `select`), the `rigid_*` fields [Q]
+    (None in a plan of lanes)."""
 
     rank_scores: torch.Tensor  # [Q, C, Nm]
     rank_offset: torch.Tensor  # [Q, C]
@@ -73,21 +78,37 @@ class SamplingPlan:
     cov_scores_m: torch.Tensor  # [Q, C, Nm]
     cov_offset_b: torch.Tensor  # [Q, C]
     cov_offset_f: torch.Tensor  # [Q, C]
+    rigid_scores_m: torch.Tensor | None = None  # [Q, Nm]
+    rigid_scores_f: torch.Tensor | None = None  # [Q, Nf]
+    rigid_offsets_f: torch.Tensor | None = None  # [Q, T]
+    rigid_offsets_b: torch.Tensor | None = None  # [Q, T]
+    rigid_stats_offset_f: torch.Tensor | None = None  # [Q]
+    rigid_stats_offset_b: torch.Tensor | None = None  # [Q]
 
-    def select(self, lanes: torch.Tensor, cand: torch.Tensor) -> "SamplingPlan":
-        """Per-lane plan: entry (lanes[i], cand[i]) for each lane i."""
+    def _per_candidate(self, fn) -> "SamplingPlan":
+        """A plan of lanes: `fn` of every per-candidate field, and no rigid
+        stream (that one belongs to a query, not to a lane)."""
         return SamplingPlan(
             **{
-                f.name: getattr(self, f.name)[lanes, cand]
+                f.name: fn(getattr(self, f.name))
                 for f in dataclasses.fields(self)
+                if not f.name.startswith("rigid_")
             }
         )
 
+    def select(self, lanes: torch.Tensor, cand: torch.Tensor) -> "SamplingPlan":
+        """Per-lane plan: entry (lanes[i], cand[i]) for each lane i."""
+        return self._per_candidate(lambda x: x[lanes, cand])
+
     def flatten(self) -> "SamplingPlan":
         """[Q, C, ...] -> [Q*C, ...] lanes, query-major."""
+        return self._per_candidate(lambda x: x.flatten(0, 1))
+
+    def query(self, i: int) -> "SamplingPlan":
+        """The [1, C] plan of query `i`, its rigid stream included."""
         return SamplingPlan(
             **{
-                f.name: getattr(self, f.name).flatten(0, 1)
+                f.name: None if getattr(self, f.name) is None else getattr(self, f.name)[i : i + 1]
                 for f in dataclasses.fields(self)
             }
         )
@@ -96,6 +117,16 @@ class SamplingPlan:
         return ICPDraws(
             self.icp_scores_m, self.icp_scores_f, self.icp_offsets_f,
             self.icp_offsets_b, self.icp_stats_offset_f, self.icp_stats_offset_b,
+        )
+
+    def rigid(self) -> ICPDraws:
+        """The rigid refinement's draws, one lane per query."""
+        if self.rigid_scores_m is None:
+            raise ValueError("this plan holds no rigid stream (a plan of lanes, or one "
+                             "built without it)")
+        return ICPDraws(
+            self.rigid_scores_m, self.rigid_scores_f, self.rigid_offsets_f,
+            self.rigid_offsets_b, self.rigid_stats_offset_f, self.rigid_stats_offset_b,
         )
 
     def covariance(self) -> CovarianceDraws:
@@ -121,12 +152,14 @@ def draw_sampling_plan(
     def u(n):
         return torch.rand((Q, C, n), generator=generator, device=dev)
 
-    def off(*shape):
+    def off(*shape, lead=(Q, C)):
         return torch.randint(
-            0, _OFFSET_RANGE, (Q, C) + shape, generator=generator, device=dev,
+            0, _OFFSET_RANGE, lead + shape, generator=generator, device=dev,
             dtype=torch.int64,
         )
 
+    # the per-candidate streams first, in this order: the rigid stream was
+    # added after them and leaves their values as they were
     return SamplingPlan(
         rank_scores=u(n_moving), rank_offset=off(),
         icp_scores_m=u(n_moving), icp_scores_f=u(n_fixed),
@@ -134,4 +167,8 @@ def draw_sampling_plan(
         icp_stats_offset_f=off(), icp_stats_offset_b=off(),
         cov_scores_f=u(n_fixed), cov_scores_m=u(n_moving),
         cov_offset_b=off(), cov_offset_f=off(),
+        rigid_scores_m=torch.rand((Q, n_moving), generator=generator, device=dev),
+        rigid_scores_f=torch.rand((Q, n_fixed), generator=generator, device=dev),
+        rigid_offsets_f=off(T, lead=(Q,)), rigid_offsets_b=off(T, lead=(Q,)),
+        rigid_stats_offset_f=off(lead=(Q,)), rigid_stats_offset_b=off(lead=(Q,)),
     )

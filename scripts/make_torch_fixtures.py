@@ -8,7 +8,10 @@ features with theirs.  This script makes them with lrr_tpu on the CPU:
 
   tests/data/torch_pair_small.npz (+ .json)
       a 32^3 `make_pair` context at a small config, for the port's CPU
-      parity tests (so they pay no stage-1 compile);
+      parity tests (so they pay no stage-1 compile), with the per-feature
+      watershed region ids of lrr_tpu's `segment_pair` beside it as `mr.0` /
+      `fr.0` (keys that lrr_tpu's own loader passes over and the port's
+      `load_pair_context` carries across);
   lrr_tpu_torch/data/bench_pair_s64.npz (+ .json)
       the `bench.py::build_workload` context (64^3 phantom pair, seed 11),
       with lrr_tpu's own acceptance on its 64 bench queries, served with the
@@ -89,7 +92,8 @@ def bench_workload():
     return cfg, pair, queries
 
 
-def write(path_npz: str, cfg, pair: dict, qspec: dict, run_reference: bool):
+def write(path_npz: str, cfg, pair: dict, qspec: dict, run_reference: bool,
+          with_regions: bool = False):
     import jax
     import jax.numpy as jnp
 
@@ -107,6 +111,15 @@ def write(path_npz: str, cfg, pair: dict, qspec: dict, run_reference: bool):
     print(f"# {path_npz}: prepare {time.time() - t0:.1f}s", flush=True)
     os.makedirs(os.path.dirname(path_npz), exist_ok=True)
     save_pair_context(path_npz, ctx)
+    if with_regions:
+        from lrr_tpu.pipeline.registration import segment_pair
+
+        seg = segment_pair(moving, fixed, ctx)
+        with np.load(path_npz) as z:
+            flat = {k: z[k] for k in z.files}
+        flat["mr.0"] = np.asarray(seg.moving_region_labels, np.int32)
+        flat["fr.0"] = np.asarray(seg.fixed_region_labels, np.int32)
+        np.savez_compressed(path_npz, **flat)
 
     queries = np.random.default_rng(qspec["seed"]).uniform(
         qspec["lo"], qspec["hi"], (qspec["n"], 3)
@@ -168,7 +181,7 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     cfg, pair, q = small_workload()
     write(os.path.join(ROOT, "tests", "data", "torch_pair_small.npz"),
-          cfg, pair, q, run_reference=False)
+          cfg, pair, q, run_reference=False, with_regions=True)
     if not args.small_only:
         cfg, pair, q = bench_workload()
         write(os.path.join(ROOT, "lrr_tpu_torch", "data", "bench_pair_s64.npz"),

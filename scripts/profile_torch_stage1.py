@@ -1,6 +1,7 @@
 """Where stage 1 of the PyTorch port spends its time on the card.
 
     python3 scripts/profile_torch_stage1.py [--shape 400,350,350] [--out DIR]
+                                            [--stages detect,descriptors,voronoi,watershed]
 
 Builds the dense phantom pair of the reference-constants workload (seed 11,
 6 degrees, noise 0.5; `FeatureConfig(max_features=65536)`, 4,096 keypoints,
@@ -14,7 +15,13 @@ Builds the dense phantom pair of the reference-constants workload (seed 11,
      neighbour search;
   3. builds the fixed Voronoi map with `voronoi_map_exact_blocked` at block
      sizes 32 and 16, in turns (32, 16, 16, 32), checks the maps are equal
-     bit for bit, and reports the candidate capacities the blocks fell into.
+     bit for bit, and reports the candidate capacities the blocks fell into;
+  4. runs `watershed_segmentation` on the fixed volume with its stages
+     wrapped like 1. (diffusion, gradient, pre-flood, descent pointers, the
+     two `p <- p[p]` loops with their rounds, the plateau sweeps), times one
+     `p[p]` round alone between CUDA events, on the descent pointers (the
+     first round) and on the final labels (the last), and reports the peak
+     memory of the segmentation alone.
 
 Prints one JSON object and writes it to DIR/stage1_profile.json (default
 chiprun_out/profile).  Needs a CUDA GPU.
@@ -76,13 +83,15 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shape", default="400,350,350")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out", "profile"))
+    ap.add_argument("--stages", default="detect,descriptors,voronoi,watershed")
     args = ap.parse_args()
+    stages = set(args.stages.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_stage1: no CUDA device")
 
-    from lrr_tpu_torch.config import DescriptorConfig, FeatureConfig, KeypointConfig
+    from lrr_tpu_torch.config import FeatureConfig
     from lrr_tpu_torch.features import extract
-    from lrr_tpu_torch.ops import descriptors, filters, sparsify, voronoi
+    from lrr_tpu_torch.ops import descriptors, filters, sparsify, voronoi, watershed
     from lrr_tpu_torch.utils.synthetic import make_pair
 
     card = subprocess.run(
@@ -132,10 +141,29 @@ def main() -> None:
               "features": int(fs.count()),
               "sparsify": {**seen, "rounds": rounds["n"]}}
 
-    # 2. descriptors
+    rec = {"card": card, "torch": torch.__version__, "volume": list(shape), "phantom_s": phantom_s,
+           "detect_features": detect}
+
+    if "descriptors" in stages:
+        rec["compute_descriptors"] = profile_descriptors(extract, descriptors, fs)
+    if "voronoi" in stages:
+        rec["voronoi_blocked"] = profile_voronoi(voronoi, fs)
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del fs
+    if "watershed" in stages:
+        rec["watershed"] = profile_watershed(watershed, fixed.data)
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "stage1_profile.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    print(json.dumps(rec), flush=True)
+
+
+def profile_descriptors(extract, descriptors, fs) -> dict:
+    from lrr_tpu_torch.config import DescriptorConfig, KeypointConfig
+
     kp = extract.extract_keypoints(fs, KeypointConfig(max_keypoints=4096))
     dcfg = DescriptorConfig(min_neighbors=100, max_neighbors=2048)
-    descriptors.compute_descriptors(kp, fs, dcfg)
+    descriptors.compute_descriptors(kp, fs, dcfg)  # warm-up
     clock = Clock()
     clock.wrap(descriptors, "_nearest_features")
     clock.wrap(descriptors, "_descriptors_chunk")
@@ -143,10 +171,12 @@ def main() -> None:
         ds, desc_s = timed(lambda: descriptors.compute_descriptors(kp, fs, dcfg))
     finally:
         clock.restore()
-    desc = {"total_s": desc_s, "by_function_s": clock.seconds, "calls": clock.calls,
+    return {"total_s": desc_s, "by_function_s": clock.seconds, "calls": clock.calls,
             "keypoints": int(kp.count()), "valid": int(ds.keypoints.count())}
 
-    # 3. the blocked exact Voronoi build at two block sizes
+
+def profile_voronoi(voronoi, fs) -> dict:
+    """The blocked exact Voronoi build at two block sizes."""
     vol0, origin, spacing = voronoi.build_feature_voronoi(fs.xyz, fs.mask)  # and a warm-up
     shape_zyx = tuple(vol0.shape)
     del vol0
@@ -172,14 +202,67 @@ def main() -> None:
             "blocks_by_capacity": {int(c): int((caps == c).sum()) for c in np.unique(caps)},
             "distance_evaluations": float((caps.astype(np.float64) * block**3).sum()),
         }
+    return vor
 
-    rec = {"card": card, "torch": torch.__version__, "volume": list(shape), "phantom_s": phantom_s,
-           "detect_features": detect, "compute_descriptors": desc, "voronoi_blocked": vor,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "stage1_profile.json"), "w") as f:
-        json.dump(rec, f, indent=1)
-    print(json.dumps(rec), flush=True)
+
+def event_ms(fn, reps: int = 10) -> float:
+    """Median milliseconds of `fn` between two CUDA events, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def profile_watershed(watershed, vol: torch.Tensor) -> dict:
+    watershed.watershed_segmentation(vol)  # warm-up
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    clock = Clock()
+    for name in ("anisotropic_diffusion", "gradient_magnitude", "_preflood", "_descent_pointers",
+                 "_plateau_sweeps"):
+        clock.wrap(watershed, name)
+    jumps = []
+    real_jump = watershed._pointer_jump
+
+    def spy_jump(p, max_rounds):
+        (out, rounds), s = timed(lambda: real_jump(p, max_rounds))
+        jumps.append({"rounds": rounds, "seconds": s})
+        return out, rounds
+
+    watershed._pointer_jump = spy_jump
+    try:
+        labels, total_s = timed(lambda: watershed.watershed_segmentation(vol))
+    finally:
+        clock.restore()
+        watershed._pointer_jump = real_jump
+    peak = torch.cuda.max_memory_allocated()
+
+    # one p[p] round alone: the first (descent pointers, mostly near
+    # neighbours) and the last (every voxel already at its basin's root)
+    height = watershed.gradient_magnitude(watershed.anisotropic_diffusion(vol))
+    first = watershed._descent_pointers(watershed._preflood(height, 0.001, 0.10)).reshape(-1)
+    last = labels.reshape(-1)
+    del height
+    n = last.numel()
+    own = torch.arange(n, dtype=last.dtype, device=last.device)
+    rounds = {
+        name: {"ms": ms, "gb_per_s": 3 * 4 * n / ms / 1e6}  # index read, gather, write
+        for name, ms in (("first_round", event_ms(lambda: torch.index_select(first, 0, first))),
+                         ("last_round", event_ms(lambda: torch.index_select(last, 0, last))))
+    }
+    return {
+        "total_s": total_s, "by_function_s": clock.seconds, "pointer_jumps": jumps,
+        "one_p_of_p_round": rounds, "voxels": n, "basins": int((last == own).sum()),
+        "table_mb": 4 * n / 1e6, "peak_mem_above_held_gb": (peak - held) / 1e9,
+        "held_gb": held / 1e9,
+    }
 
 
 if __name__ == "__main__":

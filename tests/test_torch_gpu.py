@@ -1,4 +1,5 @@
-"""The port's CUDA kernels, its stage 1 and its serving slice on the card.
+"""The port's CUDA kernels, its stage 1, its regions and its entry points on
+the card.
 
 Every test here needs a CUDA GPU and skips without one.  The file imports
 neither JAX nor lrr_tpu, so it also runs where only PyTorch is installed:
@@ -356,3 +357,118 @@ def test_topk_ties_on_gpu(cuda):
     want = extract_keypoints(fs, KeypointConfig(max_keypoints=128))
     got = extract_keypoints(fs.to(cuda), KeypointConfig(max_keypoints=128))
     assert _fields_equal(got, want) and int(want.count()) == 128
+
+
+# ---------------------------------------------------------------------------
+# watershed regions and the entry points built on them
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_watershed_labels_on_gpu_equal_cpu(cuda):
+    """On one height array the labels are defined exactly: the card gives
+    the CPU's, on the phantom and on a lattice of tied heights; the
+    diffusion and gradient agree to 1e-6 of the largest value."""
+    from lrr_tpu_torch.ops import watershed
+
+    fixed, _, _ = _dense_pair("cpu")
+    smooth = watershed.anisotropic_diffusion(fixed.data)
+    smooth_g = watershed.anisotropic_diffusion(fixed.data.to(cuda))
+    assert float((smooth_g.cpu() - smooth).abs().max()) <= 1e-6 * float(smooth.abs().max())
+    height = watershed.gradient_magnitude(smooth)
+    height_g = watershed.gradient_magnitude(smooth.to(cuda))
+    assert float((height_g.cpu() - height).abs().max()) <= 1e-6 * float(height.abs().max())
+    ties = torch.tensor(np.random.default_rng(2).integers(0, 4, (12, 9, 14)), dtype=torch.float32)
+    for h, args in ((height, ()), (height, (0.0, 0.0, 3)), (ties, (0.0, 0.0, 8)), (ties, ())):
+        want = watershed.watershed_labels(h, *args)
+        got = watershed.watershed_labels(h.to(cuda), *args)
+        assert got.dtype == torch.int32 and got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+    assert len(torch.unique(want)) > 1
+
+
+@pytest.mark.gpu
+def test_segmentation_and_region_selection_are_bit_identical_run_to_run(cuda):
+    """`watershed_segmentation` twice on the card, then the batched region
+    selection twice: the same bits; the selection also equals the CPU's on
+    the same labels."""
+    from lrr_tpu_torch.ops import watershed
+    from lrr_tpu_torch.pipeline import regions
+
+    fixed, _, _ = _dense_pair(cuda)
+    labels = watershed.watershed_segmentation(fixed.data)
+    assert torch.equal(labels, watershed.watershed_segmentation(fixed.data))
+    fs = detect_features(fixed, STAGE1_FEATURES)
+    feat = regions.compact_feature_labels(fs, labels, fixed.origin, fixed.spacing)
+    assert torch.equal(
+        feat, regions.compact_feature_labels(fs, labels, fixed.origin, fixed.spacing))
+    assert int(feat.max()) + 1 >= 20
+    rng = np.random.default_rng(3)
+    queries = torch.tensor(rng.uniform(10, 34, (33, 3)), dtype=torch.float32, device=cuda)
+    lo, hi = queries - 12.0, queries + 12.0
+    for target in (50, 400, 100000):
+        got = regions.select_features_by_labels(fs, feat, queries, target, box_lo=lo, box_hi=hi)
+        again = regions.select_features_by_labels(fs, feat, queries, target, box_lo=lo, box_hi=hi)
+        assert torch.equal(got, again)
+        want = regions.select_features_by_labels(
+            fs.to("cpu"), feat.cpu(), queries.cpu(), target, box_lo=lo.cpu(), box_hi=hi.cpu())
+        assert torch.equal(got.cpu(), want)
+        assert bool(got.any(-1).all())
+
+
+@pytest.mark.gpu
+def test_region_entry_points_on_gpu(cuda):
+    """On the card: `segment_pair` attaches the CPU's region ids; the staged
+    run, the refine-all run and the run from the bare index maps select the
+    same candidates; the rigid refinement gives a rotation; the replay calls
+    back once an iteration."""
+    import dataclasses
+
+    from lrr_tpu_torch.pipeline import registration
+
+    with open(SMALL + ".json") as f:
+        meta = json.load(f)
+    cfg = pipeline_config_from_dict(meta["config"])
+    cfg = dataclasses.replace(cfg, estimation=dataclasses.replace(
+        cfg.estimation, target_region_features=120))
+    pair = meta["pair"]
+    fixed, moving, _ = make_pair(
+        tuple(pair["shape_zyx"]), rotation_deg=pair["rotation_deg"],
+        translation=tuple(pair["translation"]), seed=pair["seed"], device=cuda)
+    loaded = load_pair_context(SMALL + ".npz", cuda)
+    ctx = registration.segment_pair(moving, fixed, loaded)
+    # the artifact carries the ids lrr_tpu's segmentation gave on the CPU
+    assert torch.equal(ctx.moving_region_labels, loaded.moving_region_labels)
+    assert torch.equal(ctx.fixed_region_labels, loaded.fixed_region_labels)
+
+    queries = torch.tensor(meta["queries"], dtype=torch.float32, device=cuda)
+    plan = draw_sampling_plan(
+        torch.Generator(device=cuda).manual_seed(0), len(queries), cfg,
+        ctx.moving_features.capacity, ctx.fixed_features.capacity)
+    svm = load_default_verifier()
+    n0 = kernels.LAUNCHES["normal_equations"]
+    staged = register_locations_staged(ctx, queries, cfg, svm, plan)
+    assert kernels.LAUNCHES["normal_equations"] > n0
+    assert int((staged.selected >= 0).sum()) >= len(queries) - 1
+    every = registration.register_locations(ctx, queries, cfg, svm, plan)
+    both = (staged.selected >= 0) & (every.selected >= 0)
+    assert bool(every.refined.all()) and torch.equal(staged.selected[both], every.selected[both])
+    bare = register_locations_staged(
+        dataclasses.replace(ctx, fixed_grid=None, moving_grid=None), queries, cfg, svm, plan)
+    assert torch.equal(bare.selected, staged.selected)
+    assert torch.equal(bare.trans.A, staged.trans.A)
+    assert torch.equal(bare.probability, staged.probability)
+
+    one = plan.query(0)
+    n0 = kernels.LAUNCHES["normal_equations"]
+    res, best, usable = registration.register_location_rigid(ctx, queries[0], cfg, one)
+    assert kernels.LAUNCHES["normal_equations"] == n0  # the 6 x 6 system is not K1's
+    assert bool(usable) and bool(res.valid)
+    eye = torch.eye(3, device=cuda)
+    assert float((res.trans.A @ res.trans.A.T - eye).abs().max()) <= 1e-5
+    calls = []
+    c = int(staged.selected[0])
+    watched = registration.watch_candidate(
+        ctx, queries[0], cfg, one, c, lambda *a: calls.append(a))
+    assert len(calls) == int(watched.iterations) >= 2
+    assert float((watched.trans.A - staged.trans.A[0, c]).abs().max()) <= 1e-4

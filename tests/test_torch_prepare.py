@@ -371,18 +371,31 @@ def test_prepare_pair_refuses_volumes_on_two_devices():
 
 def test_no_grid_above_the_voxel_gate_and_serving_says_so(monkeypatch):
     """A map above the gate gets no baked grid, as in lrr_tpu; serving from
-    such a context raises instead of taking another path."""
+    such a context reads the bare index map of that side and says the same
+    as serving from a context with both grids."""
+    from lrr_tpu_torch.sampling import draw_sampling_plan
+
     _, _, _, _, tctx = small_pair()
     _, tcfg = tp.small_configs()
-    monkeypatch.setattr(treg, "FUSED_GRID_MAX_VOXELS", 1000)
-    ctx = treg.assemble_pair_context(
+    parts = (
         tctx.moving_features, tctx.fixed_features, tctx.moving_descriptors, tctx.fixed_descriptors,
         tctx.moving_vor, VoronoiGrid(tctx.fixed_vor.index_vol[:8, :8, :8], tctx.fixed_vor.origin,
                                      tctx.fixed_vor.spacing),
     )
+    both = treg.assemble_pair_context(*parts)
+    monkeypatch.setattr(treg, "FUSED_GRID_MAX_VOXELS", 1000)
+    ctx = treg.assemble_pair_context(*parts)
     assert ctx.moving_grid is None and ctx.fixed_grid is not None
-    with pytest.raises(ValueError, match="no baked NN-row grid"):
-        treg.register_locations_staged(ctx, torch.zeros((1, 3)), tcfg, tload_svm(), None)
+    assert both.moving_grid is not None
+    queries = torch.as_tensor(tp.small_queries())
+    plan = draw_sampling_plan(torch.Generator().manual_seed(0), len(queries), tcfg,
+                              ctx.moving_features.capacity, ctx.fixed_features.capacity)
+    got = treg.register_locations_staged(ctx, queries, tcfg, tload_svm(), plan)
+    want = treg.register_locations_staged(both, queries, tcfg, tload_svm(), plan)
+    for name in ("selected", "verified", "refined", "probability"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got.trans.A, want.trans.A) and torch.equal(got.trans.t, want.trans.t)
+    assert bool(got.refined.any())
 
 
 def gt_errors(trans_A, trans_t, trans_c, selected, queries, true):

@@ -59,18 +59,50 @@ def small_configs():
 
 
 @functools.lru_cache(maxsize=None)
-def small_contexts():
+def small_region_contexts():
     """(lrr_tpu PairContext with its nn_table, lrr_tpu_torch PairContext),
-    both from the committed artifact."""
+    both from the committed artifact, both with the per-feature watershed
+    region ids that lrr_tpu's `segment_pair` gave (the artifact's `mr.0` /
+    `fr.0`, which only the port's loader reads)."""
     from lrr_tpu.matching.indexing import descriptor_nn_table
     from lrr_tpu.pipeline.artifacts import load_pair_context as jload
     from lrr_tpu_torch.pipeline.artifacts import load_pair_context as tload
 
     jctx = jload(SMALL + ".npz")
+    with np.load(SMALL + ".npz") as z:
+        regions = jnp.asarray(z["mr.0"]), jnp.asarray(z["fr.0"])
     jctx = jctx.replace(
-        nn_table=descriptor_nn_table(jctx.fixed_descriptors, jctx.moving_descriptors)
+        nn_table=descriptor_nn_table(jctx.fixed_descriptors, jctx.moving_descriptors),
+        moving_region_labels=regions[0], fixed_region_labels=regions[1],
     )
     return jctx, tload(SMALL + ".npz", "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def small_contexts():
+    """The two contexts of `small_region_contexts` without regions."""
+    import dataclasses
+
+    jctx, tctx = small_region_contexts()
+    return (
+        jctx.replace(moving_region_labels=None, fixed_region_labels=None),
+        dataclasses.replace(tctx, moving_region_labels=None, fixed_region_labels=None),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def small_volumes():
+    """The fixture's phantom pair from its seed, by each package's own
+    `make_pair`: ((fixed, moving) of lrr_tpu, (fixed, moving) of the port)."""
+    from lrr_tpu.utils.synthetic import make_pair as jmake
+    from lrr_tpu_torch.utils.synthetic import make_pair as tmake
+
+    pair = small_meta()["pair"]
+    kw = dict(rotation_deg=pair["rotation_deg"], translation=tuple(pair["translation"]),
+              seed=pair["seed"])
+    jf, jm, _ = jmake(tuple(pair["shape_zyx"]), **kw)
+    tf, tm, _ = tmake(tuple(pair["shape_zyx"]), device="cpu", **kw)
+    return (jf, jm), (tf, tm)
 
 
 def small_queries(n: int | None = None) -> np.ndarray:
@@ -118,58 +150,90 @@ def lane_keys(key, Q: int, C: int):
     return k1s, k2s
 
 
-def plan_from_jax_keys(key, m_sel, f_sel, jcfg):
-    """The port's SamplingPlan holding exactly the draws lrr_tpu makes in
-    register_locations_staged(..., key) (registration.py:475-507, icp.py:
-    1007-1036/1183, measurements.py:87)."""
+def _icp_draws(k1, m_mask, f_mask, T: int) -> dict:
+    """register_candidate's draws from its key `k1` (icp.py:1007-1036/1183)
+    for one candidate with ROI masks `m_mask` / `f_mask`."""
+    nm, nf = m_mask.shape[0], f_mask.shape[0]
+    vm, vf = max(int(m_mask.sum()), 1), max(int(f_mask.sum()), 1)
+    kk, kpm, kpf, kof, kob = jax.random.split(k1, 5)
+    ks_f, ks_b = jax.random.split(kk)
+    return {
+        "icp_scores_m": jax.random.uniform(kpm, (nm,)),
+        "icp_scores_f": jax.random.uniform(kpf, (nf,)),
+        "icp_offsets_f": jax.random.randint(kof, (T,), 0, vm),
+        "icp_offsets_b": jax.random.randint(kob, (T,), 0, vf),
+        "icp_stats_offset_f": jax.random.randint(ks_f, (), 0, vm),
+        "icp_stats_offset_b": jax.random.randint(ks_b, (), 0, vf),
+    }
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    return torch.from_numpy(a.astype(np.float32) if a.dtype.kind == "f" else a.astype(np.int64))
+
+
+def plan_from_candidate_keys(ckeys, m_sel, f_sel, jcfg):
+    """The port's SamplingPlan holding exactly the draws lrr_tpu makes from
+    the per-candidate keys `ckeys[q][c]` (registration.py:384/479: each is
+    split into k0, k0b, k1, k2; icp.py:1007-1036/1183, measurements.py:87)."""
     from lrr_tpu_torch.sampling import SamplingPlan
 
-    Q = len(m_sel)
-    C = jcfg.indexing.num_candidates
     T = jcfg.estimation.max_iterations + 1
-    fields = {name: [] for name in (
-        "rank_scores", "rank_offset", "icp_scores_m", "icp_scores_f",
-        "icp_offsets_f", "icp_offsets_b", "icp_stats_offset_f",
-        "icp_stats_offset_b", "cov_scores_f", "cov_scores_m", "cov_offset_b",
-        "cov_offset_f",
-    )}
-    qkeys = jax.random.split(key, Q)
-    for q in range(Q):
-        ckeys = jax.random.split(qkeys[q], C)
-        rows = {name: [] for name in fields}
-        for c in range(C):
+    fields = {}
+    for q, row in enumerate(ckeys):
+        rows = {}
+        for c, ck in enumerate(row):
             nm, nf = m_sel[q][c].shape[0], f_sel[q][c].shape[0]
             vm = max(int(m_sel[q][c].sum()), 1)
             vf = max(int(f_sel[q][c].sum()), 1)
-            k0, k0b, k1, k2 = jax.random.split(ckeys[c], 4)
-            kk, kpm, kpf, kof, kob = jax.random.split(k1, 5)
-            ks_f, ks_b = jax.random.split(kk)
+            k0, k0b, k1, k2 = jax.random.split(ck, 4)
             kf, kb, kpf2, kpm2 = jax.random.split(k2, 4)
             draws = {
                 "rank_scores": jax.random.uniform(k0, (nm,)),
                 "rank_offset": jax.random.randint(k0b, (), 0, vm),
-                "icp_scores_m": jax.random.uniform(kpm, (nm,)),
-                "icp_scores_f": jax.random.uniform(kpf, (nf,)),
-                "icp_offsets_f": jax.random.randint(kof, (T,), 0, vm),
-                "icp_offsets_b": jax.random.randint(kob, (T,), 0, vf),
-                "icp_stats_offset_f": jax.random.randint(ks_f, (), 0, vm),
-                "icp_stats_offset_b": jax.random.randint(ks_b, (), 0, vf),
+                **_icp_draws(k1, m_sel[q][c], f_sel[q][c], T),
                 "cov_scores_f": jax.random.uniform(kpf2, (nf,)),
                 "cov_scores_m": jax.random.uniform(kpm2, (nm,)),
                 "cov_offset_b": jax.random.randint(kb, (), 0, vf),
                 "cov_offset_f": jax.random.randint(kf, (), 0, vm),
             }
             for name, v in draws.items():
-                rows[name].append(np.asarray(v))
-        for name in fields:
-            fields[name].append(np.stack(rows[name]))
-    out = {}
-    for name, v in fields.items():
-        a = np.stack(v)
-        out[name] = torch.from_numpy(
-            a.astype(np.float32) if a.dtype.kind == "f" else a.astype(np.int64)
-        )
-    return SamplingPlan(**out)
+                rows.setdefault(name, []).append(np.asarray(v))
+        for name, v in rows.items():
+            fields.setdefault(name, []).append(np.stack(v))
+    return SamplingPlan(**{name: _to_tensor(np.stack(v)) for name, v in fields.items()})
+
+
+def plan_from_jax_keys(key, m_sel, f_sel, jcfg):
+    """The plan of register_locations_staged(..., key) and of
+    register_locations(..., key) (registration.py:420/475: one key a query,
+    then one a candidate)."""
+    C = jcfg.indexing.num_candidates
+    return plan_from_candidate_keys(
+        [jax.random.split(qk, C) for qk in jax.random.split(key, len(m_sel))],
+        m_sel, f_sel, jcfg)
+
+
+def plan_from_query_key(key, m_sel, f_sel, jcfg):
+    """The [1, C] plan of register_location(..., key) and of
+    watch_candidate(..., key) (registration.py:894/926); `m_sel` / `f_sel`
+    are the one query's rows."""
+    return plan_from_candidate_keys(
+        [jax.random.split(key, jcfg.indexing.num_candidates)], [m_sel], [f_sel], jcfg)
+
+
+def rigid_plan_from_jax_key(key, m_sel, f_sel, jcfg, best: int):
+    """The [1, C] plan of register_location_rigid(..., key)
+    (registration.py:839-858: C + 1 keys, the last one refines the
+    best-ranked candidate `best`, whose ROI counts bound its offsets)."""
+    import dataclasses
+
+    C = jcfg.indexing.num_candidates
+    keys = jax.random.split(key, C + 1)
+    plan = plan_from_candidate_keys([keys[:C]], [m_sel], [f_sel], jcfg)
+    d = _icp_draws(keys[C], m_sel[best], f_sel[best], jcfg.estimation.max_iterations + 1)
+    return dataclasses.replace(plan, **{
+        name.replace("icp_", "rigid_"): _to_tensor(v)[None] for name, v in d.items()})
 
 
 def torch_affine(tr):
