@@ -49,9 +49,28 @@ Phases, one line each; any failure raises and exits non-zero:
               `watch_candidate`; one staged run from the bare index maps
               equal to the run from the baked grids; the kernels' launches
               of each entry point on its own (none by the rigid model);
-  9. kernels_path_shapes  K1 against its plain version, as in phase 3, at
-              every (lanes, matches) shape a path launched it at that
-              phase 3 did not hold.
+  9. cli_reference     the file-based pipeline at the reference constants,
+              through `lrr_tpu_torch.cli.main`: phase 6's two volumes written
+              as .mhd into a temporary directory, then `extract-features`,
+              `extract-keypoints`, `compute-descriptors`,
+              `compute-distance-map --validate` and `watershed` on both,
+              and `register` on phase 7's 16 queries with regions.  Seconds
+              and bytes a stage; the sets, maps and labels read back against
+              phase 6's bit for bit; the result files against the files of an
+              in-memory `register_locations_staged` on phase 6's context with
+              the same plan, byte for byte; two runs byte for byte; K1 and K2
+              on the path; which readers served;
+ 10. batch_calibrate   `run_batch` over a pairs file of two 64^3 phantom
+              pairs (seeds 11 and 12, 16 queries each) and one job whose
+              volume is missing: 2 completed, 1 failed, pair 11 inside phase
+              4's acceptance bounds, a resumed run byte-equal from the cached
+              contexts.  Then verifier calibration on pair 11 with the bench's
+              64 queries: `collect_labeled_measurements`, `train_c_svc` and
+              `fit_rbf_classifier` on what it collected, the serialised
+              models through `svm-predict`, one served run with each;
+ 11. kernels_path_shapes  K1 and K2 against their plain versions, as in
+              phase 3, at every shape a path launched them at that phase 3
+              did not hold.
 Then a JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -65,6 +84,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -258,50 +278,60 @@ def check_k1(rng, dev, timer):
     return results
 
 
-def check_k2(rng, dev, timer):
+K2_SHAPES = [
+    (37, 129, 195, 1, False), (200, 700, 195, 20, False),
+    (128, 128, 195, 1, False), (8, 16, 195, 2, True),
+    (4096, 4096, 195, 1, False), (4096, 4096, 195, 20, False),
+]
+
+
+def k2_key(q_n: int, p_n: int, dim: int, k: int, masked: bool = False) -> str:
+    return f"{q_n}x{p_n}x{dim}_k{k}{'_masked' if masked else ''}"
+
+
+def measure_k2(rng, dev, timer, q_n: int, p_n: int, dim: int, k: int, masked: bool) -> dict:
+    """K2 against its plain version at one shape; `masked` masks every
+    point out, else about one in seven."""
     from lrr_tpu_torch.ops import kernels
 
-    results = {}
-    for q_n, p_n, dim, k, masked in [
-        (37, 129, 195, 1, False), (200, 700, 195, 20, False),
-        (128, 128, 195, 1, False), (8, 16, 195, 2, True),
-        (4096, 4096, 195, 1, False), (4096, 4096, 195, 20, False),
-    ]:
-        q = torch.tensor(rng.standard_normal((q_n, dim)), dtype=torch.float32, device=dev)
-        p = torch.tensor(rng.standard_normal((p_n, dim)), dtype=torch.float32, device=dev)
-        mask = torch.tensor(
-            np.zeros(p_n, bool) if masked else rng.uniform(size=p_n) > 0.15, device=dev
-        )
-        d, i = kernels.knn(q, p, mask, k)
-        d_p, i_p = kernels.knn_plain(q, p, mask, k)
-        torch.cuda.synchronize()
-        label = f"K2 {q_n}x{p_n}x{dim} k={k}"
-        if masked:
-            if not bool(torch.isinf(d).all()):
-                raise AssertionError(f"{label} all-masked: finite distance returned")
-            err = 0.0
-        else:
-            if not torch.equal(i, i_p):
-                raise AssertionError(f"{label}: indices differ")
-            if not torch.equal(d, d_p):  # the same arithmetic in the same order
-                raise AssertionError(f"{label}: distances are not bit-equal")
-            err = float((d - d_p).abs().max())
-        live = int(mask.sum())
-        wide, splits = kernels.knn_plan(q_n, p_n, dim, k, dev)
-        by_ops = 3 * q_n * live * dim / FP32_FLOP_PER_S * 1e3
-        by_bytes = (4 * dim * (q_n + p_n) + p_n + 8 * q_n * k) / HBM_BYTES_PER_S * 1e3
-        ms = timer.ms(lambda: kernels.knn(q, p, mask, k))
-        big = q_n * p_n > 1 << 20
-        results[f"{q_n}x{p_n}x{dim}_k{k}{'_masked' if masked else ''}"] = {
-            "Q": q_n, "N": p_n, "D": dim, "k": k, "all_masked": masked, "max_abs_err": err,
-            "bit_equal": True, "tiles": "64x64" if wide else "16x16", "point_splits": splits,
-            "ms": ms, "ms_warm": timer.ms(lambda: kernels.knn(q, p, mask, k), cold=False),
-            "plain_ms": timer.ms(lambda: kernels.knn_plain(q, p, mask, k), reps=3 if big else 5),
-            "bound_ms": max(by_ops, by_bytes),
-            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
-            "share_of_bound": max(by_ops, by_bytes) / ms, "library_ms": None,
-        }
-    return results
+    q = torch.tensor(rng.standard_normal((q_n, dim)), dtype=torch.float32, device=dev)
+    p = torch.tensor(rng.standard_normal((p_n, dim)), dtype=torch.float32, device=dev)
+    mask = torch.tensor(
+        np.zeros(p_n, bool) if masked else rng.uniform(size=p_n) > 0.15, device=dev
+    )
+    d, i = kernels.knn(q, p, mask, k)
+    d_p, i_p = kernels.knn_plain(q, p, mask, k)
+    torch.cuda.synchronize()
+    label = f"K2 {q_n}x{p_n}x{dim} k={k}"
+    if masked:
+        if not bool(torch.isinf(d).all()):
+            raise AssertionError(f"{label} all-masked: finite distance returned")
+        err = 0.0
+    else:
+        if not torch.equal(i, i_p):
+            raise AssertionError(f"{label}: indices differ")
+        if not torch.equal(d, d_p):  # the same arithmetic in the same order
+            raise AssertionError(f"{label}: distances are not bit-equal")
+        err = float((d - d_p).abs().max())
+    live = int(mask.sum())
+    wide, splits = kernels.knn_plan(q_n, p_n, dim, k, dev)
+    by_ops = 3 * q_n * live * dim / FP32_FLOP_PER_S * 1e3
+    by_bytes = (4 * dim * (q_n + p_n) + p_n + 8 * q_n * k) / HBM_BYTES_PER_S * 1e3
+    ms = timer.ms(lambda: kernels.knn(q, p, mask, k))
+    big = q_n * p_n > 1 << 20
+    return {
+        "Q": q_n, "N": p_n, "D": dim, "k": k, "all_masked": masked, "max_abs_err": err,
+        "bit_equal": True, "tiles": "64x64" if wide else "16x16", "point_splits": splits,
+        "ms": ms, "ms_warm": timer.ms(lambda: kernels.knn(q, p, mask, k), cold=False),
+        "plain_ms": timer.ms(lambda: kernels.knn_plain(q, p, mask, k), reps=3 if big else 5),
+        "bound_ms": max(by_ops, by_bytes),
+        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+        "share_of_bound": max(by_ops, by_bytes) / ms, "library_ms": None,
+    }
+
+
+def check_k2(rng, dev, timer):
+    return {k2_key(*shape): measure_k2(rng, dev, timer, *shape) for shape in K2_SHAPES}
 
 
 # ---------------------------------------------------------------------------
@@ -486,39 +516,14 @@ def context_counts(ctx, keypoints: list[int]) -> dict:
     }
 
 
-def nearest_valid(queries: torch.Tensor, points: torch.Tensor, mask: torch.Tensor):
-    """(distance [Q], index [Q]) of the nearest valid point, chunked over
-    the queries (component-wise differences)."""
-    far = torch.where(mask[:, None], points, torch.full_like(points, 1e18))
-    dist, idx = [], []
-    for q0 in range(0, queries.shape[0], 4096):
-        q = queries[q0 : q0 + 4096]
-        d2 = sum((q[:, c, None] - far[None, :, c]) ** 2 for c in range(3))
-        m = d2.min(1)
-        dist.append(torch.sqrt(m.values))
-        idx.append(m.indices)
-    return torch.cat(dist), torch.cat(idx)
-
-
 def share_matched(a, b, tol_mm: float) -> float:
     """Share of a's valid features with a valid feature of b within
     `tol_mm` and of the same shape class."""
-    d, i = nearest_valid(a.xyz, b.xyz, b.mask)
-    ok = a.mask & (d <= tol_mm) & (a.shape == b.shape[i])
+    from lrr_tpu_torch.eval.repeatability import nearest_valid
+
+    d2, i = nearest_valid(a.xyz, b.xyz, b.mask)
+    ok = a.mask & (d2 <= tol_mm**2) & (a.shape == b.shape[i])
     return float(ok.sum()) / max(int(a.mask.sum()), 1)
-
-
-def repeatability(fixed, moving, to_moving, dist_mm: float = 2.0, angle_deg: float = 20.0):
-    """lrr_tpu/eval/repeatability.py: the share of fixed features that,
-    mapped into moving space by the true transform, have a moving feature
-    within `dist_mm` (and, for the second number, a first direction within
-    `angle_deg` of it)."""
-    d, i = nearest_valid(to_moving(fixed.xyz), moving.xyz, moving.mask)
-    cosang = (fixed.directions[:, 0, :] * moving.directions[i, 0, :]).sum(-1).abs()
-    ang = torch.rad2deg(torch.acos(torch.clamp(cosang, -1.0, 1.0)))
-    ok_dist = fixed.mask & (d <= dist_mm)
-    n = max(int(fixed.mask.sum()), 1)
-    return float(ok_dist.sum()) / n, float((ok_dist & (ang <= angle_deg)).sum()) / n
 
 
 def run_stage1_bench(seed: int, card: str):
@@ -583,6 +588,7 @@ def run_stage1_reference(card: str):
     """Phase 6: stage 1 at the reference constants.  The pair and its
     context go on to phase 7, and so do the launch counts: set to 0 here,
     read there, over the path volume -> context -> regions -> served."""
+    from lrr_tpu_torch.eval.repeatability import feature_repeatability
     from lrr_tpu_torch.features.extract import detect_features
     from lrr_tpu_torch.ops import kernels, voronoi
     from lrr_tpu_torch.utils.synthetic import make_pair
@@ -602,9 +608,8 @@ def run_stage1_reference(card: str):
     k2_shapes = dict(kernels.K2_SHAPES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    rep_dist, rep_angle = repeatability(
-        ctx.fixed_features, ctx.moving_features, true.inverse().apply
-    )
+    rep = feature_repeatability(ctx.fixed_features, ctx.moving_features, true.inverse().apply)
+    rep_dist, rep_angle = float(rep.fraction_distance_ok), float(rep.fraction_repeatable)
 
     # run to run: the same volume gives the same bits
     t0 = time.perf_counter()
@@ -756,6 +761,15 @@ def spread(x: torch.Tensor) -> list:
     return [float(x.min()), float(np.median(x.cpu().numpy())), float(x.max())]
 
 
+def reference_queries(moving) -> np.ndarray:
+    """16 queries inside the phantom's structured ellipsoid, as lrr_tpu's
+    reference-scale profile draws them."""
+    D, H, W = moving.data.shape
+    ext = [float(W), float(H), float(D)]
+    return np.random.default_rng(1).uniform(
+        [0.3 * e for e in ext], [0.7 * e for e in ext], (16, 3)).astype(np.float32)
+
+
 def run_serve_reference(seed: int, card: str, ref):
     """Phase 7: regions attached and 16 queries served at the reference
     constants, on phase 6's pair and context."""
@@ -770,12 +784,7 @@ def run_serve_reference(seed: int, card: str, ref):
     dev = ctx.device
     ctx_r, seg = timed_segment_pair(moving, fixed, ctx)
 
-    # queries inside the phantom's structured ellipsoid, as lrr_tpu's
-    # reference-scale profile draws them
-    D, H, W = moving.data.shape
-    ext = [float(W), float(H), float(D)]
-    queries = np.random.default_rng(1).uniform(
-        [0.3 * e for e in ext], [0.7 * e for e in ext], (16, 3)).astype(np.float32)
+    queries = reference_queries(moving)
     q = torch.as_tensor(queries, device=dev)
     Q, C = len(queries), cfg.indexing.num_candidates
     svm = load_default_verifier()
@@ -1084,6 +1093,475 @@ def run_regions_bench(seed: int, card: str, bench):
     return total, k1_all, by_entry
 
 
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the file-based pipeline
+# ---------------------------------------------------------------------------
+
+
+def shape_rows(k1_shapes: dict, k2_shapes: dict) -> dict:
+    return {
+        "k1_shapes": [{"L": k[0], "M_f": k[1], "M_b": k[2], "launches": n}
+                      for k, n in sorted(k1_shapes.items(), key=lambda kv: -kv[1])],
+        "k2_shapes": k2_shape_rows(k2_shapes),
+    }
+
+
+def tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(root) for f in files)
+
+
+def same_files(a: str, b: str) -> list[str]:
+    """Relative paths under `a` and `b` that are missing on one side or
+    differ in a byte; empty when the two trees are equal."""
+    def listing(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, files in os.walk(root) for f in files)
+
+    la, lb = listing(a), listing(b)
+    bad = sorted(set(la) ^ set(lb))
+    for rel in sorted(set(la) & set(lb)):
+        with open(os.path.join(a, rel), "rb") as fa, open(os.path.join(b, rel), "rb") as fb:
+            if fa.read() != fb.read():
+                bad.append(rel)
+    return bad
+
+
+def write_volume(path: str, vol) -> None:
+    from lrr_tpu_torch.io import write_mhd
+
+    write_mhd(path, vol.data.cpu().numpy(), tuple(vol.origin.cpu().numpy()),
+              tuple(vol.spacing.cpu().numpy()))
+
+
+def write_locs(path: str, queries) -> None:
+    """One query a line, with the nine digits that bring a float32 back."""
+    with open(path, "w") as f:
+        for q in queries:
+            f.write(" ".join(f"{float(v):.9g}" for v in q) + "\n")
+
+
+def compacted(fs):
+    """The valid rows of a set, in order: what a stage file holds."""
+    from lrr_tpu_torch.types import DescriptorSet
+
+    if isinstance(fs, DescriptorSet):
+        kp = compacted(fs.keypoints)
+        kp.strength = torch.ones_like(kp.strength)  # a descriptor file carries none
+        return DescriptorSet(kp, fs.descriptors[fs.keypoints.mask])
+    keep = fs.mask
+    return type(fs)(**{name: getattr(fs, name)[keep] for name in fs.__dataclass_fields__})
+
+
+def run_cli_reference(seed: int, card: str, ref):
+    """Phase 9: the stage commands from files at the reference constants,
+    on phase 6's volumes and phase 7's queries."""
+    from lrr_tpu_torch import cli
+    from lrr_tpu_torch.io import (
+        native_loader, read_descriptors, read_features, read_keypoints, read_mhd,
+        write_descriptors, write_features, write_mhd,
+    )
+    from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.ops.watershed import watershed_segmentation
+    from lrr_tpu_torch.pipeline import registration
+    from lrr_tpu_torch.types import Volume
+    from lrr_tpu_torch.verify.svm import load_default_verifier
+
+    ctx, moving, fixed, true, cfg = ref
+    dev = ctx.device
+    queries = reference_queries(moving)
+    problems = []
+    seconds: dict[str, list[float]] = {}
+    written: dict[str, int] = {}
+    work = tempfile.mkdtemp(prefix="lrr_cli_reference_")
+
+    def run(name: str, argv: list[str]):
+        before = tree_bytes(work)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(argv)  # no --device: the commands take the card by themselves
+        torch.cuda.synchronize()
+        seconds.setdefault(name, []).append(time.perf_counter() - t0)
+        written[name] = written.get(name, 0) + tree_bytes(work) - before
+
+    def p(name: str) -> str:
+        return os.path.join(work, name)
+
+    try:
+        t0 = time.perf_counter()
+        write_volume(p("moving.mhd"), moving)
+        write_volume(p("fixed.mhd"), fixed)
+        write_locs(p("locs.txt"), queries)
+        seconds["write_volumes"] = [time.perf_counter() - t0]
+        written["write_volumes"] = tree_bytes(work)
+
+        kernels.reset_launch_counts()
+        for side in ("moving", "fixed"):  # the order `prepare_pair` takes
+            run("extract-features", ["extract-features", p(f"{side}.mhd"), p(f"{side}_00.vtk"),
+                                     "--max-features", str(cfg.features.max_features)])
+            run("extract-keypoints", ["extract-keypoints", p(f"{side}_00.vtk"),
+                                      p(f"{side}_keypoints.vtk"),
+                                      "--max-keypoints", str(cfg.keypoints.max_keypoints)])
+            run("compute-descriptors", ["compute-descriptors", p(f"{side}_keypoints.vtk"),
+                                        p(f"{side}_00.vtk"), p(f"{side}_desc.vtk"),
+                                        "--min-neighbors", str(cfg.descriptors.min_neighbors)])
+            run("compute-distance-map", ["compute-distance-map", p(f"{side}_00.vtk"),
+                                         p(f"{side}_map.mhd"), "--validate"])
+            run("watershed", ["watershed", p(f"{side}.mhd"), p(f"{side}_ws.mhd")])
+        ecfg = cfg.estimation
+        register = [
+            "register", p("moving_00.vtk"), p("fixed_00.vtk"), p("moving_desc.vtk"),
+            p("fixed_desc.vtk"), "--locs", p("locs.txt"),
+            "--candidates", str(cfg.indexing.num_candidates),
+            "--max-matches", str(ecfg.max_matches), "--max-iterations", str(ecfg.max_iterations),
+            "--min-region-features", str(ecfg.min_region_features),
+            "--segment-moving", p("moving_ws.mhd"), "--segment-fixed", p("fixed_ws.mhd"),
+            "--seed", str(seed),
+        ]
+        run("register", register + ["--out", p("results")])
+        launches = dict(kernels.LAUNCHES)
+        k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
+        run("register", register + ["--out", p("results_again")])
+        twice = same_files(p("results"), p("results_again"))
+        if twice:
+            problems.append(f"two runs of register differ in {twice[:5]}")
+
+        # the file operations alone, one call each: what of a stage command's
+        # seconds is reading and writing (host copies and encoding included)
+        io_s: dict[str, list[float]] = {}
+
+        def io(name: str, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            io_s.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+
+        # what the files hold, against phase 6's sets: order and mask, bit for bit
+        row2_diff = 0.0
+        for side in ("moving", "fixed"):
+            want = compacted(getattr(ctx, f"{side}_features"))
+            io("read_volume", lambda: cli._load_volume(p(f"{side}.mhd"), dev))
+            got = io("read_features", lambda: read_features(p(f"{side}_00.vtk")))
+            io("write_features", lambda: write_features(p("io_features.vtk"), got))
+            if not bool(getattr(ctx, f"{side}_features").mask[: want.capacity].all()):
+                problems.append(f"{side}: phase 6's valid features are not a prefix")
+            if got.capacity != want.capacity or not bool(got.mask.all()):
+                problems.append(f"{side}: {got.capacity} features read back, want {want.capacity}")
+                continue
+            for name in ("xyz", "strength", "shape", "projector"):
+                if not torch.equal(getattr(got, name), getattr(want, name)):
+                    problems.append(f"{side} features.{name} read back differs")
+            # the file carries direction rows 0 and 1; a corner's row 2 is
+            # rebuilt from them on read and no path reads it
+            if not torch.equal(got.directions[:, :2], want.directions[:, :2]):
+                problems.append(f"{side} features.directions rows 0-1 read back differ")
+            row2_diff = max(row2_diff, float((got.directions[:, 2] - want.directions[:, 2]).abs().max()))
+            want_d = compacted(getattr(ctx, f"{side}_descriptors"))
+            got_d = io("read_descriptors", lambda: read_descriptors(p(f"{side}_desc.vtk")))
+            io("write_descriptors", lambda: write_descriptors(p("io_desc.vtk"), got_d))
+            got_k = io("read_keypoints", lambda: read_keypoints(p(f"{side}_keypoints.vtk")))
+            if got_d.keypoints.capacity != want_d.keypoints.capacity:
+                problems.append(f"{side}: {got_d.keypoints.capacity} descriptors read back, "
+                                f"want {want_d.keypoints.capacity}")
+                continue
+            if not torch.equal(got_d.descriptors, want_d.descriptors):
+                problems.append(f"{side} descriptors read back differ")
+            for name in ("xyz", "normal", "binormal", "strength", "mask"):
+                if not torch.equal(getattr(got_d.keypoints, name), getattr(want_d.keypoints, name)):
+                    problems.append(f"{side} descriptor keypoints.{name} read back differs")
+            # the keypoint file holds every keypoint, the descriptor file the described ones
+            if got_k.capacity < got_d.keypoints.capacity:
+                problems.append(f"{side}: fewer keypoints than descriptors on file")
+            vor = getattr(ctx, f"{side}_vor")
+            data, origin, spacing = io("read_map", lambda: read_mhd(p(f"{side}_map.mhd")))
+            io("write_map", lambda: write_mhd(
+                p("io_map.mhd"), vor.index_vol.cpu().numpy().astype(np.int32)))
+            if data.dtype != np.int32 or not np.array_equal(data, vor.index_vol.cpu().numpy()):
+                problems.append(f"{side} Voronoi map on file differs from phase 6's")
+            # the header prints the origin with six digits
+            if not (np.allclose(origin, vor.origin.cpu().numpy(), rtol=1e-5, atol=0)
+                    and np.array_equal(spacing, vor.spacing.cpu().numpy())):
+                problems.append(f"{side} Voronoi map geometry on file differs")
+
+        # the same registration in memory: phase 6's sets as a file holds them
+        # (valid rows, in order), phase 6's maps, labels straight from the
+        # watershed, the config and the plan `register` builds
+        cfg_cli = cli.register_config(cfg.indexing.num_candidates, ecfg.max_matches,
+                                      ecfg.max_iterations, ecfg.min_region_features)
+        mem = registration.assemble_pair_context(
+            compacted(ctx.moving_features), compacted(ctx.fixed_features),
+            compacted(ctx.moving_descriptors), compacted(ctx.fixed_descriptors),
+            ctx.moving_vor, ctx.fixed_vor)
+        labels = []
+        for side, vol in (("moving", moving), ("fixed", fixed)):
+            lab = watershed_segmentation(vol.data)
+            on_file = io("read_labels", lambda: cli._load_labels(p(f"{side}_ws.mhd"), dev))
+            on_file = on_file.data.cpu().numpy().astype(np.uint32)
+            if read_mhd(p(f"{side}_ws.mhd"))[0].dtype != np.uint32:
+                problems.append(f"{side} watershed labels on file are not MET_UINT")
+            if not np.array_equal(on_file, lab.cpu().numpy().astype(np.uint32)):
+                problems.append(f"{side} watershed labels on file differ from the in-memory ones")
+            labels.append(Volume(lab, vol.origin, vol.spacing))
+        mem = registration.attach_regions(mem, *labels)
+        del labels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli.register_queries(
+            mem, cli._read_locs(p("locs.txt")), cfg_cli, load_default_verifier(),
+            p("results_memory"), seed=seed)
+        torch.cuda.synchronize()
+        seconds["register_in_memory"] = [time.perf_counter() - t0]
+        routes = same_files(p("results"), p("results_memory"))
+        if routes:
+            problems.append(f"the files route and the in-memory route differ in {routes[:5]}")
+        n_result_files = len(os.listdir(p("results"))) + len(os.listdir(p("results/reference_format")))
+
+        # the result files parse, and say what the in-memory result says
+        sel = out.selected.cpu().numpy()
+        for t in range(len(queries)):
+            with open(p(f"results/results{t:06d}.json")) as f:
+                rec = json.load(f)
+            if rec["selected"] != int(sel[t]) or len(rec["candidates"]) != cfg.indexing.num_candidates:
+                problems.append(f"results{t:06d}.json does not hold the in-memory result")
+        acc = acceptance_stats(out, queries, true)
+        total_bytes = tree_bytes(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    phase(
+        "cli_reference", card=card, queries=len(queries), stage_s=seconds, io_s=io_s,
+        bytes_written=written, bytes_total=total_bytes, result_files=n_result_files,
+        readers={"mhd": "python (io.mhd.read_mhd)", "base64": native_loader.reader_kind()},
+        features=[int(ctx.moving_features.count()), int(ctx.fixed_features.count())],
+        descriptors=[int(ctx.moving_descriptors.keypoints.count()),
+                     int(ctx.fixed_descriptors.keypoints.count())],
+        corner_third_direction_max_abs_diff=row2_diff,
+        verified=int((sel >= 0).sum()), **acc,
+        max_query_keypoints=cfg_cli.indexing.max_query_keypoints,
+        files_route_equals_memory_route=not routes, two_runs_equal=not twice,
+        launches=launches, **shape_rows(k1_shapes, k2_shapes),
+        problems=problems,
+    )
+    if problems:
+        raise AssertionError("cli_reference: " + "; ".join(problems))
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"cli_reference: kernel {name} was never launched on the path")
+    kf, km = (int(ctx.fixed_descriptors.keypoints.count()),
+              int(ctx.moving_descriptors.keypoints.count()))
+    if k2_shapes.get((kf, km, 195, 1), 0) < 1:
+        raise AssertionError(
+            f"cli_reference: no K2 launch at {kf} x {km} x 195 (the described keypoints "
+            f"of the two files): {k2_shapes}")
+    return launches, k1_shapes, k2_shapes
+
+
+def run_batch_calibrate(seed: int, card: str):
+    """Phase 10: `run_batch` with a failing job and a resume, then
+    verifier calibration on its first pair, at bench scale."""
+    from lrr_tpu_torch import cli
+    from lrr_tpu_torch.io import native_loader
+    from lrr_tpu_torch.io.svmlight import write_svmlight
+    from lrr_tpu_torch.models.affine import Affine3D
+    from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.pipeline import batch
+    from lrr_tpu_torch.pipeline.artifacts import load_pair_context
+    from lrr_tpu_torch.pipeline.registration import register_locations_staged
+    from lrr_tpu_torch.sampling import draw_sampling_plan
+    from lrr_tpu_torch.utils.synthetic import make_pair
+    from lrr_tpu_torch.verify import smo, surrogate
+    from lrr_tpu_torch.verify.svm import (
+        fit_rbf_classifier, load_default_verifier, predict_probability, scale_measurements,
+        serialize_libsvm_model,
+    )
+
+    meta, cfg = load_bench_meta()
+    pair = meta["pair"]
+    cal_queries = np.asarray(meta["queries"], np.float32)  # 64, as bench.py calibrates
+    queries = cal_queries[:16]
+    ref = meta["lrr_tpu_reference"]
+    problems = []
+    work = tempfile.mkdtemp(prefix="lrr_batch_calibrate_")
+
+    def p(name: str) -> str:
+        return os.path.join(work, name)
+
+    try:
+        kernels.reset_launch_counts()
+        trues = {}
+        for s in (11, 12):
+            fixed, moving, trues[s] = make_pair(
+                tuple(pair["shape_zyx"]), rotation_deg=pair["rotation_deg"],
+                translation=tuple(pair["translation"]), seed=s)
+            write_volume(p(f"moving{s}.mhd"), moving)
+            write_volume(p(f"fixed{s}.mhd"), fixed)
+        del fixed, moving
+        write_locs(p("locs.txt"), queries)
+        with open(p("pairs.txt"), "w") as f:
+            f.write(f"pair11 {p('moving11.mhd')} {p('fixed11.mhd')} {p('locs.txt')}\n")
+            f.write(f"absent {p('no_such_volume.mhd')} {p('fixed11.mhd')} {p('locs.txt')}\n")
+            f.write(f"pair12 {p('moving12.mhd')} {p('fixed12.mhd')} {p('locs.txt')}\n")
+        jobs = batch.load_pair_list(p("pairs.txt"))
+        svm = load_default_verifier()
+
+        # the batched results of every staged run, by job: the script reads
+        # acceptance from them, `run_batch` itself only writes files
+        served = []
+        staged = batch.register_locations_staged
+
+        def keeping(ctx, q, *args, **kwargs):
+            out = staged(ctx, q, *args, **kwargs)
+            served.append(out)
+            return out
+
+        def run(out_dir):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            report = batch.run_batch(jobs, cfg, svm, out_dir, seed=seed, query_batch=8)
+            torch.cuda.synchronize()
+            return report, time.perf_counter() - t0
+
+        batch.register_locations_staged = keeping
+        try:
+            report, first_s = run(p("out"))
+        finally:
+            batch.register_locations_staged = staged
+        statuses = [(e["name"], e["status"]) for e in report["pairs"]]
+        if (report["completed"], report["failed"], report["skipped"]) != (2, 1, 0) or statuses != [
+                ("pair11", "ok"), ("absent", "failed"), ("pair12", "ok")]:
+            errors = [e.get("error") for e in report["pairs"] if e["status"] == "failed"]
+            raise AssertionError(f"batch_calibrate: run_batch reported {statuses}: {errors}")
+        if "no_such_volume" not in report["pairs"][1]["error"]:
+            problems.append(f"the absent job failed otherwise: {report['pairs'][1]['error']}")
+
+        # pair 11 is the bench pair: its 16 queries inside phase 4's bounds
+        # (two batches of 8; pair 12's two follow)
+        true11 = trues[11]
+        acc = {}
+        for name, outs, true in (("pair11", served[:2], true11), ("pair12", served[2:], trues[12])):
+            stats = [acceptance_stats(o, queries[i * 8 : i * 8 + 8], true) for i, o in enumerate(outs)]
+            sel = np.concatenate([o.selected.cpu().numpy() for o in outs])
+            rank0 = np.concatenate([o.rank[:, 0].cpu().numpy() for o in outs])
+            errs = [s["median_gt_error_mm"] for s in stats if s["median_gt_error_mm"] is not None]
+            acc[name] = {"verified_frac": float((sel >= 0).mean()),
+                         "rank0_frac": float((sel == rank0).mean()),
+                         "median_gt_error_mm_by_batch": errs}
+        del served
+        slack = 2.0 / len(queries)
+        a11 = acc["pair11"]
+        err_cap = max(1.0, 1.5 * ref["median_gt_error_mm"])
+        if a11["verified_frac"] < ref["verified_frac"] - slack:
+            problems.append(f"pair11 verified_frac {a11['verified_frac']}")
+        if a11["rank0_frac"] < ref["rank0_frac"] - slack:
+            problems.append(f"pair11 rank0_frac {a11['rank0_frac']}")
+        if not a11["median_gt_error_mm_by_batch"] or max(a11["median_gt_error_mm_by_batch"]) > err_cap:
+            problems.append(f"pair11 median GT error {a11['median_gt_error_mm_by_batch']} above {err_cap}")
+
+        # a second run skips on the markers; with the markers gone it resumes
+        # from the cached contexts and writes the same bytes
+        def result_files(out_dir):
+            return {f: open(os.path.join(out_dir, f), "rb").read()
+                    for f in sorted(os.listdir(out_dir)) if "_results" in f}
+
+        first = result_files(p("out"))
+        report2, skip_s = run(p("out"))
+        if (report2["completed"], report2["failed"], report2["skipped"]) != (0, 1, 2):
+            problems.append(f"the second run did not skip on the markers: {report2}")
+        for name in ("pair11", "pair12"):
+            os.remove(p(f"out/{name}.done"))
+        stamp = os.path.getmtime(p("out/artifacts/pair11.npz"))
+        report3, resume_s = run(p("out"))
+        resumed_equal = result_files(p("out")) == first
+        if report3["completed"] != 2 or os.path.getmtime(p("out/artifacts/pair11.npz")) != stamp:
+            problems.append("the resumed run did not use the cached contexts")
+        if not resumed_equal or len(first) != 2 * 2 * len(queries):
+            problems.append("the resumed run's results are not byte-equal to the first run's")
+        batch_launches = dict(kernels.LAUNCHES)
+
+        # calibration on pair 11, from the context the batch cached
+        ctx = load_pair_context(p("out/artifacts/pair11.npz"))
+        dev = ctx.device
+        true11 = Affine3D(*(t.to(dev) for t in (true11.A, true11.t, true11.center)))
+
+        def plan_for(run_id: int, n_queries: int):
+            g = torch.Generator(device=dev).manual_seed(seed * 1000 + 900 + run_id)
+            return draw_sampling_plan(g, n_queries, cfg, ctx.moving_features.capacity,
+                                      ctx.fixed_features.capacity)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X, y = surrogate.collect_labeled_measurements(
+            ctx, cfg, true11, cal_queries, plan_for(0, len(cal_queries)))
+        torch.cuda.synchronize()
+        collect_s = time.perf_counter() - t0
+        n_pos, n_neg = int((y > 0).sum()), int((y == 0).sum())
+        if min(n_pos, n_neg) < 8:
+            raise AssertionError(f"batch_calibrate: {n_pos} aligned and {n_neg} misaligned "
+                                 "measurements collected, want 8 of each")
+        Xs = scale_measurements(torch.from_numpy(X)).numpy()
+        write_svmlight(p("train.txt"), Xs, np.where(y > 0, 1.0, -1.0))
+
+        t0 = time.perf_counter()
+        _, _, smo_iterations = smo.smo_solve(
+            smo.rbf_kernel(Xs.astype(np.float64), 0.125), np.where(y > 0, 1.0, -1.0), 1.0)
+        models = {"smo": smo.train_c_svc(Xs, y)}
+        smo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        models["klr"] = fit_rbf_classifier(Xs, y)  # on the card
+        torch.cuda.synchronize()
+        klr_s = time.perf_counter() - t0
+
+        trained = {}
+        q_dev = torch.as_tensor(queries, device=dev)
+        for name, model in models.items():
+            probs = predict_probability(model.to(dev), torch.from_numpy(Xs).to(dev)).cpu().numpy()
+            accuracy = float(((probs > 0.5) == (y > 0)).mean())
+            with open(p(f"{name}.model"), "w") as f:
+                f.write(serialize_libsvm_model(model))
+            cli.main(["svm-predict", p("train.txt"), p(f"{name}.model"), p(f"{name}.pred"), "-b"])
+            from_file = np.loadtxt(p(f"{name}.pred"), skiprows=1)[:, 1]
+            file_diff = float(np.abs(from_file - probs).max())
+            out = register_locations_staged(ctx, q_dev, cfg, model, plan_for(1, len(queries)))
+            torch.cuda.synchronize()
+            trained[name] = {
+                "support_vectors": int(model.sv.shape[0]), "training_accuracy": accuracy,
+                "serialised_max_abs_probability_diff": file_diff,
+                **acceptance_stats(out, queries, true11),
+            }
+            if accuracy < 0.9:
+                problems.append(f"{name}: training accuracy {accuracy} below 0.9")
+            if file_diff > 1e-5:
+                problems.append(f"{name}: the serialised model's probabilities differ by {file_diff}")
+        launches = dict(kernels.LAUNCHES)
+        k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
+        total_bytes = tree_bytes(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    phase(
+        "batch_calibrate", card=card, queries_per_pair=len(queries),
+        calibration_queries=len(cal_queries),
+        report={k: report[k] for k in ("completed", "failed", "skipped")},
+        failed_job_error=report["pairs"][1]["error"], timers=report["timers"],
+        run_s={"first": first_s, "skipping": skip_s, "resumed": resume_s},
+        resumed_timers=report3["timers"], resumed_byte_equal=resumed_equal,
+        volume_reader=native_loader.reader_kind(), acceptance=acc,
+        lrr_tpu_reference={k: ref[k] for k in ("verified_frac", "rank0_frac", "median_gt_error_mm")},
+        calibration={"collect_s": collect_s, "aligned": n_pos, "misaligned": n_neg,
+                     "smo_iterations": int(smo_iterations), "smo_s": smo_s, "klr_s": klr_s,
+                     "models": trained},
+        bytes_total=total_bytes, batch_launches=batch_launches, launches=launches,
+        **shape_rows(k1_shapes, k2_shapes), problems=problems,
+    )
+    if problems:
+        raise AssertionError("batch_calibrate: " + "; ".join(problems))
+    for name, n in batch_launches.items():
+        if n <= 0:
+            raise AssertionError(f"batch_calibrate: kernel {name} was never launched by run_batch")
+    return launches, k1_shapes, k2_shapes
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1116,21 +1594,29 @@ def main() -> None:
 
     launches4, shapes4 = run_slice(args.seed, card)
     (launches5, shapes5), bench = run_stage1_bench(args.seed, card)
-    launches7, shapes7 = run_serve_reference(args.seed, card, run_stage1_reference(card))
+    ref = run_stage1_reference(card)
+    launches7, shapes7 = run_serve_reference(args.seed, card, ref)
     launches8, shapes8, entries8 = run_regions_bench(args.seed, card, bench)
     del bench
+    launches_cli, shapes_cli, k2_cli = run_cli_reference(args.seed, card, ref)
+    del ref
+    launches_batch, shapes_batch, k2_batch = run_batch_calibrate(args.seed, card)
     by_path = {"slice": launches4, "stage1_bench": launches5,
-               "stage1_reference+serve_reference": launches7, "regions_bench": launches8,
+               "stage1_reference+serve_reference": launches7, "cli_reference": launches_cli,
+               "regions_bench": launches8, "batch_calibrate": launches_batch,
                "regions_bench_by_entry": {
                    name: {k: e[k] for k in launches4} for name, e in entries8.items()}}
-    launches = {name: launches4[name] + launches5[name] + launches7[name] + launches8[name]
+    launches = {name: sum(path[name] for path in (launches4, launches5, launches7, launches_cli,
+                                                  launches8, launches_batch))
                 for name in launches4}
 
     # K1 against its plain version at every shape a path gave it (as row
-    # views, the layout the ICP hands over) that phase 3 did not hold
+    # views, the layout the ICP hands over) that phase 3 did not hold, and
+    # K2 at every shape the file-based paths gave it
     path_shapes: dict[tuple[int, int, int], dict[str, int]] = {}
     for path, shapes in (("slice", shapes4), ("stage1_bench", shapes5),
-                         ("serve_reference", shapes7), ("regions_bench", shapes8)):
+                         ("serve_reference", shapes7), ("cli_reference", shapes_cli),
+                         ("regions_bench", shapes8), ("batch_calibrate", shapes_batch)):
         for shape, n in shapes.items():
             path_shapes.setdefault(shape, {})[path] = n
     added = {}
@@ -1138,8 +1624,18 @@ def main() -> None:
         if k1_key(*shape, True) not in k1:
             k1[k1_key(*shape, True)] = added[k1_key(*shape, True)] = measure_k1(
                 rng, dev, timer, *shape, True)
-    phase("kernels_path_shapes", card=card, normal_equations=added,
-          launches={k1_key(*shape, True): n for shape, n in sorted(path_shapes.items())})
+    k2_path_shapes: dict[tuple[int, int, int, int], dict[str, int]] = {}
+    for path, shapes in (("cli_reference", k2_cli), ("batch_calibrate", k2_batch)):
+        for shape, n in shapes.items():
+            k2_path_shapes.setdefault(shape, {})[path] = n
+    k2_added = {}
+    for shape in sorted(k2_path_shapes):
+        if k2_key(*shape) not in k2:
+            k2[k2_key(*shape)] = k2_added[k2_key(*shape)] = measure_k2(
+                rng, dev, timer, *shape, False)
+    phase("kernels_path_shapes", card=card, normal_equations=added, knn=k2_added,
+          launches={k1_key(*shape, True): n for shape, n in sorted(path_shapes.items())},
+          knn_launches={k2_key(*shape): n for shape, n in sorted(k2_path_shapes.items())})
 
     # each kernel at the shape the serving path (phase 4) gives it most often
     k1_main = max(shapes4, key=shapes4.get)
@@ -1159,7 +1655,12 @@ def main() -> None:
          "replaces": "lrr_tpu/ops/pallas_kernels.py:108",
          "launches": launches["knn"], **{k: k2r[k] for k in keys},
          "shape": "4096x4096x195_k1",
-         "other_path_shapes": {"128x128x195_k1": {k: k2m[k] for k in keys}}},
+         "other_path_shapes": {
+             "128x128x195_k1": {k: k2m[k] for k in keys},
+             **{k2_key(*shape): {**{k: k2[k2_key(*shape)][k] for k in keys},
+                                 "launches": sum(n.values()), "launches_by_path": n}
+                for shape, n in sorted(k2_path_shapes.items())
+                if k2_key(*shape) not in ("128x128x195_k1", "4096x4096x195_k1")}}},
     ], "launch_floor_ms": floor_ms, "launches_by_path": by_path}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -76,6 +76,19 @@ class Affine3D:
         ) + self.t[..., None, :]
 
     @classmethod
+    def identity(cls, dtype=torch.float32, device=None) -> "Affine3D":
+        z = torch.zeros(3, dtype=dtype, device=device)
+        return cls(A=torch.eye(3, dtype=dtype, device=device), t=z, center=z.clone())
+
+    def params_reference_order(self) -> torch.Tensor:
+        """[A row-major (9), t (3)] (cdcl_trans_affine.txx:68-84)."""
+        return torch.cat([self.A.reshape(self.A.shape[:-2] + (9,)), self.t], dim=-1)
+
+    @classmethod
+    def from_params_reference_order(cls, p: torch.Tensor, center: torch.Tensor) -> "Affine3D":
+        return cls(A=p[..., :9].reshape(p.shape[:-1] + (3, 3)), t=p[..., 9:12], center=center)
+
+    @classmethod
     def from_theta(cls, theta: torch.Tensor, center: torch.Tensor) -> "Affine3D":
         th = theta.reshape(theta.shape[:-1] + (3, 4))
         return cls(A=th[..., :3], t=th[..., 3], center=center)

@@ -89,3 +89,21 @@ def muse_scale(
     ).long()
     s2 = r2c.gather(-1, ks) / torch.clamp(eu2c.gather(-1, ks), min=1e-30)
     return torch.sqrt(s2.min(dim=-1).values)
+
+
+def nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.nanmedian` along the last dim: the mean of the two middle values
+    for an even count (torch.nanmedian returns the lower one)."""
+    nan = torch.isnan(x)
+    v = torch.sort(torch.where(nan, torch.full_like(x, math.inf), x), dim=-1).values
+    n = (~nan).sum(-1)
+    q = 0.5 * (n - 1).to(x.dtype)
+    lo = torch.floor(q)
+    hi_w = q - lo
+    last = x.shape[-1] - 1
+    lo_i = torch.clamp(lo.long(), 0, last)
+    hi_i = torch.clamp(torch.ceil(q).long(), 0, last)
+    lo_v = v.gather(-1, lo_i[..., None])[..., 0]
+    hi_v = v.gather(-1, hi_i[..., None])[..., 0]
+    out = lo_v * (1.0 - hi_w) + hi_v * hi_w
+    return torch.where(n > 0, out, torch.full_like(out, math.nan))

@@ -57,17 +57,13 @@ from lrr_tpu_torch.matching.indexing import (
 )
 from lrr_tpu_torch.models.affine import Affine3D
 from lrr_tpu_torch.ops.descriptors import compute_descriptors
+from lrr_tpu_torch.ops.robust import nanmedian
 from lrr_tpu_torch.ops.voronoi import build_feature_voronoi
 from lrr_tpu_torch.ops.watershed import watershed_segmentation
 from lrr_tpu_torch.pipeline.regions import compact_feature_labels, select_features_by_labels
 from lrr_tpu_torch.sampling import SamplingPlan
 from lrr_tpu_torch.types import DescriptorSet, FeatureSet, Volume
 from lrr_tpu_torch.verify.svm import SvmModel, predict_probability, scale_measurements
-
-# consecutive low-yield waves (< 1/4 of active queries resolved) after which
-# a wave refines every remaining rank at once
-MAX_UNPRODUCTIVE = 2
-
 
 @dataclasses.dataclass
 class PairContext:
@@ -225,24 +221,6 @@ def _candidate_rois(ctx: PairContext, init: Affine3D, query: torch.Tensor, cfg):
     return m_sel, f_sel, moving_lo, fixed_lo, enough, qm
 
 
-def _nanmedian(x: torch.Tensor) -> torch.Tensor:
-    """`jnp.nanmedian` along the last dim: the mean of the two middle values
-    for an even count (torch.nanmedian returns the lower one)."""
-    nan = torch.isnan(x)
-    v = torch.sort(torch.where(nan, torch.full_like(x, math.inf), x), dim=-1).values
-    n = (~nan).sum(-1)
-    q = 0.5 * (n - 1).to(x.dtype)
-    lo = torch.floor(q)
-    hi_w = q - lo
-    last = x.shape[-1] - 1
-    lo_i = torch.clamp(lo.long(), 0, last)
-    hi_i = torch.clamp(torch.ceil(q).long(), 0, last)
-    lo_v = v.gather(-1, lo_i[..., None])[..., 0]
-    hi_v = v.gather(-1, hi_i[..., None])[..., 0]
-    out = lo_v * (1.0 - hi_w) + hi_v * hi_w
-    return torch.where(n > 0, out, torch.full_like(out, math.nan))
-
-
 def _candidate_initial_angle(
     ctx: PairContext, init: Affine3D, m_sel: torch.Tensor, cfg,
     scores: torch.Tensor, offset: torch.Tensor,
@@ -269,7 +247,7 @@ def _candidate_initial_angle(
     if os.environ.get("LRR_RANK_KEY") == "angle":
         return ang
     r2 = _residual2_packed(init, _as_packed_matches(s0))
-    med_res = torch.sqrt(_nanmedian(torch.where(s0.mask, r2, torch.full_like(r2, math.nan))))
+    med_res = torch.sqrt(nanmedian(torch.where(s0.mask, r2, torch.full_like(r2, math.nan))))
     # empty samples rank last among usable but stay finite
     med_res = torch.nan_to_num(med_res, nan=1e6, posinf=1e6)
     return ang / (math.pi / 4.0) + med_res / 4.5
@@ -358,6 +336,8 @@ def register_locations_staged(
     svm: SvmModel,
     plan: SamplingPlan,
     lane_budget: int = 64,
+    accept_override: float | None = None,
+    max_unproductive: int = 2,
 ) -> LocationResult:
     """Batched registration with the reference's PASS-2 early exit.
 
@@ -367,9 +347,13 @@ def register_locations_staged(
     candidate wins; the first pre-gated-unusable rank exhausts the query).
     The group width adapts to `lane_budget`: k0 = budget // Q ranks per
     query in the first wave, then budget // (active queries).  After
-    `MAX_UNPRODUCTIVE` consecutive low-yield waves the group width jumps to
-    all C candidates.  Ranks no wave reached are left "never refined"
-    (verified False, probability 0).  `plan` holds every random draw
+    `max_unproductive` consecutive low-yield waves (fewer than a quarter of
+    the active queries resolved) the group width jumps to all C candidates.
+    Ranks no wave reached are left "never refined" (verified False,
+    probability 0).  `accept_override` takes the place of
+    `cfg.verify.accept_probability` as the acceptance bar: above 1 nothing
+    verifies, so every usable candidate is refined through the serving
+    waves (verifier calibration runs so).  `plan` holds every random draw
     (`sampling.draw_sampling_plan`)."""
     _no_tf32()
     dev = ctx.device
@@ -411,7 +395,7 @@ def register_locations_staged(
     refined_out = np.zeros((Q, C), bool)
     initial_rms_out = np.zeros((Q, C), np.float32)
     final_rms_out = np.zeros((Q, C), np.float32)
-    accept_p = cfg.verify.accept_probability
+    accept_p = cfg.verify.accept_probability if accept_override is None else accept_override
 
     def absorb_wave(wave, lanes, cand_idx):
         h = {k: v.cpu().numpy() for k, v in wave.items()}
@@ -457,7 +441,7 @@ def register_locations_staged(
         act = np.nonzero(~resolved & (wave_pos < C))[0]
         if act.size == 0:
             break
-        k_r = C if unproductive >= MAX_UNPRODUCTIVE else max(1, min(lane_budget // act.size, C))
+        k_r = C if unproductive >= max_unproductive else max(1, min(lane_budget // act.size, C))
         fl_lanes, fl_cands = [], []
         new_pos = wave_pos.copy()
         for q in act:
@@ -570,11 +554,12 @@ def register_locations(
     )
 
 
-def _first(obj):
-    """Entry 0 along the leading dim of every tensor of a result dataclass."""
+def result_at(obj, i: int):
+    """Entry `i` along the leading dim of every tensor of a result dataclass:
+    one query's `LocationResult` out of a batched one."""
     if isinstance(obj, torch.Tensor):
-        return obj[0]
-    return type(obj)(**{f.name: _first(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+        return obj[i]
+    return type(obj)(**{f.name: result_at(getattr(obj, f.name), i) for f in dataclasses.fields(obj)})
 
 
 def register_location(
@@ -587,7 +572,7 @@ def register_location(
     """Full stage 2+3 for one query location, every candidate refined; the
     result's fields lead with [C] and `selected` is a scalar."""
     query = torch.as_tensor(query, dtype=torch.float32, device=ctx.device)
-    return _first(register_locations(ctx, query[None], cfg, svm, plan))
+    return result_at(register_locations(ctx, query[None], cfg, svm, plan), 0)
 
 
 def _one_candidate(ctx, query, cfg, plan: SamplingPlan, candidate, inits: Affine3D):
@@ -628,7 +613,7 @@ def register_location_rigid(
         moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
         fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid, model="rigid",
     )
-    return _first(res), best, usable.any()
+    return result_at(res, 0), best, usable.any()
 
 
 def watch_candidate(
@@ -663,4 +648,4 @@ def watch_candidate(
         fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid,
         progress_callback=progress_callback,
     )
-    return _first(res)
+    return result_at(res, 0)

@@ -1,8 +1,10 @@
 """SVM verification of candidate alignments (lrr_tpu/verify/svm.py).
 
-A 2-class RBF C-SVC with Platt probability outputs, read from the libsvm
-text model format; each 8-d measurement vector is rescaled to [-1, 1] with
-the reference driver's hard-coded train-set min/max before prediction.
+A 2-class RBF C-SVC with Platt probability outputs, read from and written to
+the libsvm text model format; each 8-d measurement vector is rescaled to
+[-1, 1] with the reference program's hard-coded train-set min/max before
+prediction.  `fit_rbf_classifier` trains the kernel-logistic stand-in;
+`verify.smo.train_c_svc` is the C-SVC solver.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import os
 
 import numpy as np
 import torch
+
+from lrr_tpu_torch.types import resolve_device
 
 # Hard-coded measurement scaling (itkLocationRegistration.cxx:2107-2109).
 REFERENCE_FEATURE_MIN = np.array(
@@ -118,6 +122,29 @@ def parse_libsvm_model(text: str) -> SvmModel:
     )
 
 
+def serialize_libsvm_model(model: SvmModel) -> str:
+    """Inverse of parse_libsvm_model (svm.cpp svm_save_model format)."""
+    sv = model.sv.detach().cpu().numpy()
+    coef = model.sv_coef.detach().cpu().numpy()
+    out = [
+        "svm_type c_svc",
+        "kernel_type rbf",
+        f"gamma {model.gamma:g}",
+        "nr_class 2",
+        f"total_sv {sv.shape[0]}",
+        f"rho {model.rho:g}",
+        f"label {model.labels[0]} {model.labels[1]}",
+        f"probA {model.prob_a:g}",
+        f"probB {model.prob_b:g}",
+        f"nr_sv {sv.shape[0]} 0",
+        "SV",
+    ]
+    for c, v in zip(coef, sv):
+        feats = " ".join(f"{i}:{x:g}" for i, x in enumerate(v))
+        out.append(f"{c:g} {feats}")
+    return "\n".join(out) + "\n"
+
+
 # The shipped verifier: the port's own copy of lrr_tpu's trained model file
 # (a test holds the two byte-equal).
 DEFAULT_MODEL_PATH = os.path.join(
@@ -131,3 +158,67 @@ def load_default_verifier(path: str = DEFAULT_MODEL_PATH) -> SvmModel:
     time for every pair, as the reference loads training_data_all.model)."""
     with open(path) as f:
         return parse_libsvm_model(f.read())
+
+
+def fit_rbf_classifier(
+    X: np.ndarray,
+    y: np.ndarray,  # 1 = aligned, 0/-1 = misaligned
+    gamma: float = 0.125,
+    l2: float = 1e-3,
+    steps: int = 500,
+    lr: float = 0.5,
+    device=None,
+) -> SvmModel:
+    """Train a probabilistic RBF classifier (kernel logistic regression) on
+    `device` (`None`: the CUDA card); the model comes back on the CPU.
+
+    Functional replacement for svm-train + Platt scaling: the decision
+    function has the same form sum_i alpha_i K(x, sv_i) - rho and the
+    probability map is the same sigmoid, so the result round-trips through
+    the libsvm model format.  Unlike C-SVC the solution is dense (all
+    training points are "support vectors"), which is irrelevant for the
+    8-d / few-hundred-sample verification problem.  `steps` plain gradient
+    steps in float32; the Gram matrix product never runs in TF32.
+    """
+    device = resolve_device(device, "fit_rbf_classifier")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    X = np.asarray(X, np.float32)
+    yy = np.where(np.asarray(y) > 0, 1.0, -1.0).astype(np.float32)
+    n = X.shape[0]
+
+    # class-balanced weights: calibration sets are naturally imbalanced
+    # (few aligned candidates among many refined ones) and an unweighted
+    # mean loss biases the 0.5 threshold toward the majority class
+    n_pos = max(int((yy > 0).sum()), 1)
+    n_neg = max(int((yy < 0).sum()), 1)
+    w = np.where(yy > 0, n / (2.0 * n_pos), n / (2.0 * n_neg)).astype(np.float32)
+
+    Xt = torch.from_numpy(X).to(device)
+    yt = torch.from_numpy(yy).to(device)
+    wt = torch.from_numpy(w).to(device)
+    sq = (Xt * Xt).sum(-1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * Xt @ Xt.T
+    K = torch.exp(-gamma * torch.clamp(d2, min=0.0))
+
+    alpha = torch.zeros(n, device=device, requires_grad=True)
+    rho = torch.zeros((), device=device, requires_grad=True)
+    for _ in range(steps):
+        f = K @ alpha - rho
+        # weighted logistic loss on margins; P(aligned) = sigmoid(f)
+        loss = (wt * torch.log1p(torch.exp(-yt * f))).mean() + l2 * ((alpha @ K) @ alpha)
+        ga, gr = torch.autograd.grad(loss, (alpha, rho))
+        with torch.no_grad():
+            alpha -= lr * ga
+            rho -= lr * gr
+
+    # Platt slope of -1 reproduces P = sigmoid(f) through the libsvm-style
+    # sigmoid p = 1/(1+exp(A f + B))
+    return SvmModel(
+        gamma=gamma,
+        rho=float(rho.detach()),
+        sv=torch.from_numpy(X),
+        sv_coef=alpha.detach().cpu(),
+        prob_a=-1.0,
+        prob_b=0.0,
+        labels=(1, -1),
+    )

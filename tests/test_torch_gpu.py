@@ -472,3 +472,79 @@ def test_region_entry_points_on_gpu(cuda):
         ctx, queries[0], cfg, one, c, lambda *a: calls.append(a))
     assert len(calls) == int(watched.iterations) >= 2
     assert float((watched.trans.A - staged.trans.A[0, c]).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the file-based pipeline on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_stage_commands_take_the_card_by_default(cuda, tmp_path, capsys):
+    """The stage commands with no `--device`: K2 launches once in `register`
+    and K1 in every ICP iteration; `--device cpu` launches neither; both
+    verify every query."""
+    from lrr_tpu_torch import cli
+    from lrr_tpu_torch.io import read_features, write_mhd
+
+    fixed, moving, _ = make_pair((32, 32, 32), rotation_deg=4.0, translation=(2.0, -1.0, 0.5),
+                                 seed=3)
+    assert fixed.data.is_cuda
+    p = lambda name: str(tmp_path / name)  # noqa: E731
+    for side, vol in (("moving", moving), ("fixed", fixed)):
+        write_mhd(p(f"{side}.mhd"), vol.data.cpu().numpy(), tuple(vol.origin.cpu().numpy()),
+                  tuple(vol.spacing.cpu().numpy()))
+        cli.main(["extract-features", p(f"{side}.mhd"), p(f"{side}_00.vtk"),
+                  "--max-features", "1024"])
+        cli.main(["extract-keypoints", p(f"{side}_00.vtk"), p(f"{side}_kp.vtk"),
+                  "--max-keypoints", "32"])
+        cli.main(["compute-descriptors", p(f"{side}_kp.vtk"), p(f"{side}_00.vtk"),
+                  p(f"{side}_desc.vtk"), "--min-neighbors", "8"])
+    assert read_features(p("moving_00.vtk")).xyz.is_cuda
+    with open(p("locs.txt"), "w") as f:
+        f.write("14 16 15\n18 15 17\n")
+    register = ["register", p("moving_00.vtk"), p("fixed_00.vtk"), p("moving_desc.vtk"),
+                p("fixed_desc.vtk"), "--locs", p("locs.txt"), "--candidates", "4",
+                "--max-matches", "512", "--max-iterations", "12", "--min-region-features", "32"]
+    kernels.reset_launch_counts()
+    cli.main(register + ["--out", p("on_card")])
+    assert kernels.LAUNCHES["knn"] == 1 and kernels.LAUNCHES["normal_equations"] > 0
+    kernels.reset_launch_counts()
+    cli.main(register + ["--out", p("on_cpu"), "--device", "cpu"])
+    assert kernels.LAUNCHES == {"normal_equations": 0, "knn": 0}
+    for out in ("on_card", "on_cpu"):  # each device draws its own plan from the seed
+        for t in range(2):
+            with open(p(f"{out}/results{t:06d}.json")) as f:
+                assert json.load(f)["selected"] >= 0
+
+
+@pytest.mark.gpu
+def test_fit_rbf_classifier_on_the_card_matches_the_cpu(cuda):
+    from lrr_tpu_torch.verify.svm import fit_rbf_classifier, predict_probability
+
+    rng = np.random.default_rng(5)
+    x = np.concatenate([rng.normal(-0.4, 0.3, (60, 8)), rng.normal(0.4, 0.3, (20, 8))])
+    y = np.concatenate([np.ones(60), np.zeros(20)])
+    x = x.astype(np.float32)
+    on_card, on_cpu = fit_rbf_classifier(x, y), fit_rbf_classifier(x, y, device="cpu")
+    assert not on_card.sv.is_cuda  # a trained model comes back on the host
+    xt = torch.from_numpy(x)
+    p_card, p_cpu = predict_probability(on_card, xt), predict_probability(on_cpu, xt)
+    assert float((p_card - p_cpu).abs().max()) < 2e-3
+
+
+@pytest.mark.gpu
+def test_stage_timers_wait_for_the_card(cuda):
+    """A timed stage ends in a synchronise: work queued inside it counts."""
+    from lrr_tpu_torch.utils.timers import StageTimers
+
+    a = torch.ones(4096, 4096, device=cuda)
+    a @ a
+    torch.cuda.synchronize()
+    synced, loose = StageTimers(), StageTimers(sync=False)
+    for timers in (loose, synced):
+        with timers.time("matmul"):
+            for _ in range(20):
+                a @ a
+        torch.cuda.synchronize()
+    assert synced.totals["matmul"] > 2 * loose.totals["matmul"]

@@ -25,7 +25,7 @@ from lrr_tpu_torch.matching.indexing import generate_candidates as tgen
 from lrr_tpu_torch.matching.indexing import initial_transforms as tinit
 from lrr_tpu_torch.models.affine import Affine3D
 from lrr_tpu_torch.ops import kernels
-from lrr_tpu_torch.pipeline.registration import _nanmedian
+from lrr_tpu_torch.ops.robust import nanmedian as _nanmedian
 from lrr_tpu_torch.pipeline.registration import register_locations_staged as tstaged
 from lrr_tpu_torch.sampling import draw_sampling_plan
 from lrr_tpu_torch.verify.svm import load_default_verifier as tload_svm

@@ -304,3 +304,29 @@ def jax_config(tcfg):
         v = getattr(tcfg, f.name)
         kw[f.name] = jax_config(v) if dataclasses.is_dataclass(v) else v
     return cls(**kw)
+
+
+# ---------------------------------------------------------------------------
+# results and verifiers across the two packages
+# ---------------------------------------------------------------------------
+
+
+def torch_location_result(res):
+    """lrr_tpu LocationResult (any batch) -> the port's, field for field."""
+    import dataclasses
+
+    from lrr_tpu_torch.pipeline.registration import LocationResult
+
+    return LocationResult(**{
+        f.name: torch_affine(res.trans) if f.name == "trans" else t_(getattr(res, f.name))
+        for f in dataclasses.fields(LocationResult)})
+
+
+def torch_svm(model):
+    """lrr_tpu SvmModel -> the port's, with the same numbers."""
+    from lrr_tpu_torch.verify.svm import SvmModel
+
+    return SvmModel(
+        gamma=float(model.gamma), rho=float(model.rho), sv=t_(model.sv, torch.float32),
+        sv_coef=t_(model.sv_coef, torch.float32), prob_a=float(model.prob_a),
+        prob_b=float(model.prob_b), labels=tuple(int(v) for v in model.labels))
