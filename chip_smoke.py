@@ -71,6 +71,17 @@ Phases, one line each; any failure raises and exits non-zero:
  11. kernels_path_shapes  K1 and K2 against their plain versions, as in
               phase 3, at every shape a path launched them at that phase 3
               did not hold.
+ 12. estimate  (printed before phase 11, while phase 6's pair is held) the
+              estimate family on the card: `lrr_tpu_torch.cli.main(["estimate",
+              ...])` for `icp` and the four CDC methods on phase 5's feature
+              sets written as point files, twice each (bit for bit), and
+              `--model similarity2d` on 1,000 2-D points from the seed;
+              `fit_affine_to_field` on a `DeformationField` rasterised from the
+              bench's true transform; `multiresolution_masks` on phase 6's
+              65,536-feature set; `register_intensity` at its defaults on
+              phase 6's 400 x 350 x 350 pair.  Seconds, iterations,
+              `converged`, the median error against the true map next to the
+              identity's; no kernel is on this path.
 Then a JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -397,10 +408,10 @@ def serve_and_check(label: str, ctx, cfg, meta, seed: int, card: str,
     q = torch.as_tensor(queries, device=dev)
 
     def serve(run: int):
-        g = torch.Generator(device=dev).manual_seed(seed * 1000 + run)
+        g = torch.Generator().manual_seed(seed * 1000 + run)
         plan = draw_sampling_plan(
             g, len(queries), cfg, ctx.moving_features.capacity,
-            ctx.fixed_features.capacity,
+            ctx.fixed_features.capacity, dev,
         )
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -519,9 +530,9 @@ def context_counts(ctx, keypoints: list[int]) -> dict:
 def share_matched(a, b, tol_mm: float) -> float:
     """Share of a's valid features with a valid feature of b within
     `tol_mm` and of the same shape class."""
-    from lrr_tpu_torch.eval.repeatability import nearest_valid
+    from lrr_tpu_torch.ops.knn import nn1
 
-    d2, i = nearest_valid(a.xyz, b.xyz, b.mask)
+    d2, i = nn1(a.xyz, b.xyz, b.mask)
     ok = a.mask & (d2 <= tol_mm**2) & (a.shape == b.shape[i])
     return float(ok.sum()) / max(int(a.mask.sum()), 1)
 
@@ -790,12 +801,17 @@ def run_serve_reference(seed: int, card: str, ref):
     svm = load_default_verifier()
 
     def plan_for(run: int):
-        g = torch.Generator(device=dev).manual_seed(seed * 1000 + 700 + run)
+        g = torch.Generator().manual_seed(seed * 1000 + 700 + run)
         return draw_sampling_plan(
-            g, Q, cfg, ctx.moving_features.capacity, ctx.fixed_features.capacity)
+            g, Q, cfg, ctx.moving_features.capacity, ctx.fixed_features.capacity, dev)
 
-    # the region-grown sets against the box sets, over PASS 1's lanes
+    # the region-grown sets against the box sets, over PASS 1's lanes; the
+    # plan is drawn on the CPU and moved to the card (one seed, one plan)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     plan = plan_for(0)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
     cmask, inits, enough, rank, flat, q_lanes = pass1_lanes(ctx_r, q, cfg, plan)
     grown = registration._candidate_rois(ctx_r, flat, q_lanes, cfg)
     box = registration._candidate_rois(ctx, flat, q_lanes, cfg)
@@ -865,7 +881,7 @@ def run_serve_reference(seed: int, card: str, ref):
     good = refined & (final_err < 1.0)
     rec = {
         "card": card, "queries": Q, "candidates": C, "segment": seg,
-        "warmup_s": times[0], "run_s": times[1:], "waves": waves[1:],
+        "plan_draw_s": plan_s, "warmup_s": times[0], "run_s": times[1:], "waves": waves[1:],
         "verified": int((sel >= 0).sum()), **acc,
         "accepted_rank_positions": [
             int(np.nonzero(rank_h[i] == sel[i])[0][0]) if sel[i] >= 0 else None
@@ -966,9 +982,9 @@ def run_regions_bench(seed: int, card: str, bench):
 
     kernels.reset_launch_counts()
     ctx_r, seg = timed_segment_pair(moving, fixed, ctx)
-    g = torch.Generator(device=dev).manual_seed(seed * 1000 + 800)
+    g = torch.Generator().manual_seed(seed * 1000 + 800)
     plan = draw_sampling_plan(
-        g, Q, cfg, ctx.moving_features.capacity, ctx.fixed_features.capacity)
+        g, Q, cfg, ctx.moving_features.capacity, ctx.fixed_features.capacity, dev)
 
     # a target below what the boxes hold, so that growth stops inside them
     cmask, _, enough, _, flat, q_lanes = pass1_lanes(ctx, q, cfg, plan)
@@ -1485,9 +1501,9 @@ def run_batch_calibrate(seed: int, card: str):
         true11 = Affine3D(*(t.to(dev) for t in (true11.A, true11.t, true11.center)))
 
         def plan_for(run_id: int, n_queries: int):
-            g = torch.Generator(device=dev).manual_seed(seed * 1000 + 900 + run_id)
+            g = torch.Generator().manual_seed(seed * 1000 + 900 + run_id)
             return draw_sampling_plan(g, n_queries, cfg, ctx.moving_features.capacity,
-                                      ctx.fixed_features.capacity)
+                                      ctx.fixed_features.capacity, dev)
 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1562,6 +1578,201 @@ def run_batch_calibrate(seed: int, card: str):
     return launches, k1_shapes, k2_shapes
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the estimate family
+# ---------------------------------------------------------------------------
+
+CDC_METHODS = ("cdc", "cdc-transfer", "cdc-symmetric", "cdc-symmetric-transfer")
+ESTIMATE_ITERATIONS = 12  # `estimate --iterations` for the CDC methods (default 30)
+
+
+def median_error(fn, true_fn, pts: torch.Tensor) -> float:
+    """Median distance in mm between two maps of the points."""
+    return float(torch.linalg.norm(fn(pts) - true_fn(pts), dim=-1).median())
+
+
+class Recorded:
+    """Wraps an estimator so that a command's result object is kept."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.fn, self.results = module, name, getattr(module, name), []
+
+    def __enter__(self):
+        def call(*args, **kwargs):
+            out = self.fn(*args, **kwargs)
+            self.results.append(out)
+            return out
+
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def estimate_inputs(bench):
+    """What phase 12 keeps of phase 5: the two feature sets, the volume's
+    grid and the true transform (from the committed pair's record)."""
+    from lrr_tpu_torch.models.affine import Affine3D
+
+    ctx, moving, _, _, meta = bench
+    dev = ctx.device
+    true = Affine3D(*(torch.tensor(meta["true"][k], dtype=torch.float32, device=dev)
+                      for k in ("A", "t", "center")))
+    return (ctx.moving_features, ctx.fixed_features, tuple(moving.data.shape), moving.origin,
+            moving.spacing), true
+
+
+def run_estimate(seed: int, card: str, bench_sets, ref):
+    """Phase 12: `estimate` through `lrr_tpu_torch.cli.main` on the card for
+    `icp` and the four CDC methods on the bench pair's features (phase 5), and
+    `--model similarity2d` on 1,000 2-D points from the seed; the affine fit
+    to a field rasterised from the bench's true transform; the decimation
+    masks of phase 6's 65,536-feature set; `register_intensity` at its
+    defaults on phase 6's 400 x 350 x 350 pair.  Seconds, iterations,
+    `converged`, the median error against the true map next to the
+    identity's, and for icp and each CDC method whether two runs give the
+    same bits."""
+    import contextlib
+    import io
+
+    from lrr_tpu_torch import cli
+    from lrr_tpu_torch.estimation import cdc, icp_classic, similarity2d
+    from lrr_tpu_torch.models.bspline import DeformationField, fit_affine_to_field
+    from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.ops.subsample import multiresolution_masks
+    from lrr_tpu_torch.pipeline.intensity import register_intensity
+
+    (mov_fs, fix_fs, vol_shape, vol_origin, vol_spacing), true_b = bench_sets
+    ctx_r, moving_r, fixed_r, true_r, _ = ref
+    dev = mov_fs.xyz.device
+    mov_xyz, fix_xyz = mov_fs.xyz[mov_fs.mask], fix_fs.xyz[fix_fs.mask]
+    problems = []
+    work = tempfile.mkdtemp(prefix="lrr_estimate_")
+    kernels.reset_launch_counts()
+
+    def p(name: str) -> str:
+        return os.path.join(work, name)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def estimate(argv: list[str], module, name: str):
+        """One `estimate` command (no --device: the card by itself): its
+        printed lines, result object, output row and seconds."""
+        out = p(f"out_{len(os.listdir(work))}.txt")
+        buf = io.StringIO()
+        with Recorded(module, name) as rec, contextlib.redirect_stdout(buf):
+            _, sec = timed(lambda: cli.main(["estimate", *argv, "--output", out]))
+        with open(out, "rb") as f:
+            return buf.getvalue().splitlines(), rec.results[-1], f.read(), sec
+
+    try:
+        write_locs(p("moving.txt"), mov_xyz.cpu().numpy())
+        write_locs(p("fixed.txt"), fix_xyz.cpu().numpy())
+        ident_b = median_error(lambda x: x, true_b.apply, mov_xyz)
+        methods = {}
+        for method in ("icp",) + CDC_METHODS:
+            argv = [p("moving.txt"), p("fixed.txt"), "--method", method]
+            module, name = (icp_classic, "icp_classic") if method == "icp" else (cdc, "run_cdc")
+            if method != "icp":
+                argv += ["--iterations", str(ESTIMATE_ITERATIONS)]
+            runs = [estimate(argv, module, name) for _ in range(2)]
+            (lines, res, row, sec), (_, res2, row2, sec2) = runs
+            tr = res.trans
+            same = row == row2 and all(torch.equal(getattr(tr, f), getattr(res2.trans, f))
+                                       for f in ("A", "t", "center"))
+            rec = {"seconds": [sec, sec2],
+                   "iterations": int(res.iterations if method == "icp" else res.iteration + 1),
+                   "converged": bool(res.converged), "two_runs_bit_identical": same,
+                   "median_error_mm": median_error(tr.apply, true_b.apply, mov_xyz),
+                   "printed": lines}
+            methods[method] = rec
+            if not same:
+                problems.append(f"{method}: two runs differ")
+            if not (torch.isfinite(tr.A).all() and torch.isfinite(tr.t).all()):
+                problems.append(f"{method}: non-finite transform")
+            if not rec["median_error_mm"] < ident_b:
+                problems.append(f"{method}: error {rec['median_error_mm']} not below the "
+                                f"identity's {ident_b}")
+
+        # the 2-D demo: 1,000 points under a known similarity, 5 % outliers
+        rng = np.random.default_rng(seed + 12)
+        mov2 = rng.uniform(0, 50, (1000, 2)).astype(np.float32)
+        phi = np.deg2rad(3.0)
+        A2 = 1.02 * np.array([[np.cos(phi), -np.sin(phi)], [np.sin(phi), np.cos(phi)]])
+        fix2 = mov2 @ A2.T + np.array([1.0, -0.5]) + 0.05 * rng.standard_normal((1000, 2))
+        fix2[:50] = rng.uniform(0, 50, (50, 2))
+        write_locs(p("moving2.txt"), mov2)
+        write_locs(p("fixed2.txt"), fix2.astype(np.float32))
+        lines, res, _, sec = estimate([p("moving2.txt"), p("fixed2.txt"), "--model", "similarity2d"],
+                                      similarity2d, "icp_similarity2d")
+        m2 = torch.from_numpy(mov2).to(dev)
+        A2t = torch.tensor(A2, dtype=torch.float32, device=dev)
+        t2 = torch.tensor([1.0, -0.5], device=dev)
+        true2 = lambda x: (A2t * x[:, None, :]).sum(-1) + t2  # noqa: E731
+        ident2 = median_error(lambda x: x, true2, m2)
+        sim = {"seconds": sec, "iterations": int(res.iterations), "converged": bool(res.converged),
+               "median_error_mm": median_error(res.trans.apply, true2, m2),
+               "identity_error_mm": ident2, "printed": lines}
+        if not (sim["median_error_mm"] < ident2 and np.isfinite(sim["median_error_mm"])):
+            problems.append(f"similarity2d: error {sim['median_error_mm']} vs identity {ident2}")
+
+        # the affine fit to a field rasterised from the bench's true transform
+        field, field_s = timed(lambda: DeformationField.from_transform(
+            true_b.apply, vol_shape, vol_origin, vol_spacing))
+        extent = torch.tensor(vol_shape[::-1], dtype=torch.float32, device=dev) * vol_spacing
+        (fit, rms), fit_s = timed(lambda: fit_affine_to_field(
+            field, vol_origin + 0.125 * extent, vol_origin + 0.875 * extent))
+        fit_rec = {"seconds": fit_s, "field_seconds": field_s, "rms_residual_mm": float(rms),
+                   "median_error_mm": median_error(fit.apply, true_b.apply, mov_xyz),
+                   "identity_error_mm": ident_b}
+        if not fit_rec["median_error_mm"] < ident_b or not np.isfinite(float(rms)):
+            problems.append(f"fit_affine_to_field: {fit_rec}")
+
+        # decimation of the reference-constants feature set
+        fs_r = ctx_r.fixed_features
+        spacings = (8.0, 4.0, 2.0, 0.0)
+        masks, dec_s = timed(lambda: multiresolution_masks(fs_r, spacings))
+        counts = [int(m.sum()) for m in masks]
+        again = multiresolution_masks(fs_r, spacings)
+        decimate = {"seconds": dec_s, "capacity": fs_r.capacity, "spacings": list(spacings),
+                    "kept": counts,
+                    "two_runs_bit_identical": all(torch.equal(a, b) for a, b in zip(masks, again))}
+        if not (counts == sorted(counts) and counts[-1] == int(fs_r.count())
+                and decimate["two_runs_bit_identical"]):
+            problems.append(f"multiresolution_masks: {decimate}")
+
+        # intensity registration at its defaults on the reference pair
+        torch.cuda.reset_peak_memory_stats()
+        res_i, int_s = timed(lambda: register_intensity(fixed_r, moving_r, seed=seed))
+        mxyz = ctx_r.moving_features.xyz[ctx_r.moving_features.mask]
+        ident_i = median_error(lambda x: x, true_r.apply, mxyz)
+        inten = {"seconds": int_s, "levels": res_i.levels_run, "iterations": 3 * 80,
+                 "samples": 16384, "voxels": int(fixed_r.data.numel()),
+                 "metric_value": float(res_i.metric_value),
+                 "median_error_mm": median_error(res_i.trans.apply, true_r.apply, mxyz),
+                 "identity_error_mm": ident_i,
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if not (inten["median_error_mm"] < ident_i and np.isfinite(inten["metric_value"])):
+            problems.append(f"register_intensity: error {inten['median_error_mm']} vs "
+                            f"identity {ident_i}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    launches = dict(kernels.LAUNCHES)
+    phase("estimate", card=card, points=[int(mov_xyz.shape[0]), int(fix_xyz.shape[0])],
+          cdc_iterations_flag=ESTIMATE_ITERATIONS, identity_error_mm=ident_b, methods=methods,
+          similarity2d=sim, fit_affine_to_field=fit_rec, multiresolution_masks=decimate,
+          register_intensity=inten, launches=launches, problems=problems)
+    if problems:
+        raise AssertionError("estimate: " + "; ".join(problems))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1597,9 +1808,11 @@ def main() -> None:
     ref = run_stage1_reference(card)
     launches7, shapes7 = run_serve_reference(args.seed, card, ref)
     launches8, shapes8, entries8 = run_regions_bench(args.seed, card, bench)
+    bench_sets = estimate_inputs(bench)
     del bench
     launches_cli, shapes_cli, k2_cli = run_cli_reference(args.seed, card, ref)
-    del ref
+    run_estimate(args.seed, card, bench_sets, ref)
+    del ref, bench_sets
     launches_batch, shapes_batch, k2_batch = run_batch_calibrate(args.seed, card)
     by_path = {"slice": launches4, "stage1_bench": launches5,
                "stage1_reference+serve_reference": launches7, "cli_reference": launches_cli,

@@ -10,6 +10,7 @@ reproduced end to end (README.md:18-53):
   watershed             <- features/WatershedSegmentation1.cxx
   indexing              <- rrl/examples/indexing_one_descriptor.cxx
   register              <- rrl/examples/location_registration.cxx
+  estimate              <- cdcl/examples/estimate.cxx
 
 plus `batch`, the evaluation and inspection tools and the libsvm-style
 verifier tools.  Every subcommand that computes takes `--device` (default:
@@ -145,11 +146,11 @@ def cmd_compute_distance_map(args):
     if args.validate:
         # CompareMapTree analog (compute_distance_map.cxx:37-138): check the
         # map lookup against exact brute force on the feature points
-        from lrr_tpu_torch.eval.repeatability import nearest_valid
+        from lrr_tpu_torch.ops.knn import nn1
         from lrr_tpu_torch.ops.voronoi import lookup
 
         idx_map = lookup(vol, origin, spacing, fs.xyz)
-        _, idx_bf = nearest_valid(fs.xyz, fs.xyz, fs.mask)
+        _, idx_bf = nn1(fs.xyz, fs.xyz, fs.mask)
         m = _np(fs.mask)
         agree = (_np(idx_map) == _np(idx_bf))[m].mean()
         print(f"voronoi-vs-bruteforce agreement on feature points: {agree:.4f}")
@@ -282,7 +283,8 @@ def register_queries(ctx, queries, cfg, svm, out_dir, plan=None, seed=0, model="
     """`register` on a context: serve `queries` and write the result files
     under `out_dir`.  `plan` is the [Q, C] `SamplingPlan` of the run (query
     t's rigid refinement and replay use `plan.query(t)`); without one it is
-    drawn from a generator seeded with `seed` on the context's device.
+    drawn from a CPU generator seeded with `seed` and moved to the
+    context's device.
     Returns the batched `LocationResult` (None for the rigid model)."""
     from lrr_tpu_torch.pipeline.registration import (
         register_location_rigid,
@@ -295,9 +297,10 @@ def register_queries(ctx, queries, cfg, svm, out_dir, plan=None, seed=0, model="
 
     dev = ctx.device
     if plan is None:
-        g = torch.Generator(device=dev).manual_seed(seed)
+        g = torch.Generator().manual_seed(seed)
         plan = draw_sampling_plan(
-            g, len(queries), cfg, ctx.moving_features.capacity, ctx.fixed_features.capacity
+            g, len(queries), cfg, ctx.moving_features.capacity, ctx.fixed_features.capacity,
+            dev,
         )
     q_dev = torch.tensor(queries, dtype=torch.float32, device=dev)
     os.makedirs(out_dir, exist_ok=True)
@@ -383,6 +386,71 @@ def _reference_order_transform(path, device):
     return Affine3D.from_params_reference_order(
         torch.from_numpy(p).to(device), torch.zeros(3, device=device)
     )
+
+
+def cmd_estimate(args):
+    """Point-set estimation demo (cdcl/examples/estimate.cxx): raw point
+    files, selectable model and method."""
+    from lrr_tpu_torch.estimation.cdc import CovFeatures, run_cdc
+    from lrr_tpu_torch.estimation.icp_classic import icp_classic
+    from lrr_tpu_torch.models.affine import Affine3D
+
+    dev = _device(args)
+
+    def load_pts(path, dim=3):
+        pts = np.loadtxt(path, dtype=np.float32)
+        if pts.ndim == 1:
+            pts = pts[None]
+        return torch.from_numpy(np.ascontiguousarray(pts[:, :dim])).to(dev)
+
+    def every(pts):
+        return torch.ones(len(pts), dtype=torch.bool, device=dev)
+
+    if args.model == "similarity2d":
+        # the 2-D demo path (estimate.cxx:86-110, cdcl_trans_similarity2d)
+        from lrr_tpu_torch.estimation.similarity2d import icp_similarity2d
+        from lrr_tpu_torch.models.similarity import Similarity2D
+
+        mov, fix = load_pts(args.moving, 2), load_pts(args.fixed, 2)
+        res = icp_similarity2d(mov, every(mov), fix, every(fix), Similarity2D.identity(device=dev),
+                               max_iterations=args.iterations)
+        tr = res.trans
+        print(
+            f"converged={bool(res.converged)} rms={float(res.rms):.4f} "
+            f"scale={float(tr.scale):.6g} angle={float(tr.angle):.6g}"
+        )
+        p = np.concatenate([_np(tr.A).reshape(-1), _np(tr.t)])
+        print("A (row-major):", " ".join(f"{v:.6g}" for v in p[:4]))
+        print("t:", " ".join(f"{v:.6g}" for v in p[4:]))
+        if args.output:
+            np.savetxt(args.output, p[None])
+        return
+
+    mov, fix = load_pts(args.moving), load_pts(args.fixed)
+    init = Affine3D.identity(device=dev)
+    if args.method == "icp":
+        # as lrr_tpu: --iterations is not passed on (30 a level by default)
+        res = icp_classic(mov, every(mov), fix, every(fix), init)
+        trans = res.trans
+        print(f"converged={bool(res.converged)} rms={float(res.rms):.4f}")
+    else:
+        iso = args.feature_cov * torch.eye(3, device=dev)
+        state = run_cdc(
+            CovFeatures(mov, iso.expand(len(mov), 3, 3), every(mov)),
+            CovFeatures(fix, iso.expand(len(fix), 3, 3), every(fix)),
+            init,
+            use_transfer="transfer" in args.method,
+            symmetric="symmetric" in args.method,
+            max_iterations=args.iterations,
+        )
+        trans = state.trans
+        print(f"converged={bool(state.converged)} iterations={int(state.iteration)}")
+
+    p = _np(trans.params_reference_order())
+    print("A (row-major):", " ".join(f"{v:.6g}" for v in p[:9]))
+    print("t:", " ".join(f"{v:.6g}" for v in p[9:]))
+    if args.output:
+        np.savetxt(args.output, p[None])
 
 
 def cmd_repeatability(args):
@@ -644,6 +712,23 @@ def build_parser() -> argparse.ArgumentParser:
         "(weighted error, match count) after selection: the headless "
         "analog of the reference's interactive display callback",
     )
+
+    s = command("estimate", cmd_estimate)
+    s.add_argument("moving")
+    s.add_argument("fixed")
+    s.add_argument(
+        "--method",
+        choices=["icp", "cdc", "cdc-transfer", "cdc-symmetric", "cdc-symmetric-transfer"],
+        default="icp",
+    )
+    s.add_argument(
+        "--model", choices=("affine3d", "similarity2d"), default="affine3d",
+        help="similarity2d runs the 2D demo path (estimate.cxx 2D mode) on "
+        "2-column point files",
+    )
+    s.add_argument("--iterations", type=int, default=30)
+    s.add_argument("--feature-cov", type=float, default=0.5)
+    s.add_argument("--output")
 
     s = command("repeatability", cmd_repeatability)
     s.add_argument("fixed")

@@ -12,9 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from lrr_tpu_torch.ops.knn import nn1
 from lrr_tpu_torch.types import FeatureSet
-
-_QUERY_CHUNK = 4096  # rows of the distance matrix held at once
 
 
 class RepeatabilityResult(NamedTuple):
@@ -23,22 +22,6 @@ class RepeatabilityResult(NamedTuple):
     n_evaluated: torch.Tensor
     distance_hist: torch.Tensor  # [nbins] histogram of NN distances (mm)
     angle_hist: torch.Tensor  # [nbins] histogram of normal angles (deg)
-
-
-def nearest_valid(queries: torch.Tensor, points: torch.Tensor, mask: torch.Tensor):
-    """(squared distance [Q], index [Q]) of the nearest valid point by exact
-    component-wise differences, `_QUERY_CHUNK` queries at a time so that two
-    full-size feature sets (65,536 each) fit; ties go to the lower index and
-    masked points never match (+inf), as `ops.knn.nn1`."""
-    inf = torch.full((), float("inf"), dtype=queries.dtype, device=queries.device)
-    d2s, idx = [], []
-    for q0 in range(0, queries.shape[0], _QUERY_CHUNK):
-        q = queries[q0 : q0 + _QUERY_CHUNK]
-        d2 = sum((q[:, c, None] - points[None, :, c]) ** 2 for c in range(q.shape[1]))
-        m = torch.where(mask[None, :], d2, inf).min(1)
-        d2s.append(m.values)
-        idx.append(m.indices)
-    return torch.cat(d2s), torch.cat(idx)
 
 
 def feature_repeatability(
@@ -51,7 +34,7 @@ def feature_repeatability(
     hist_max_dist: float = 10.0,
 ) -> RepeatabilityResult:
     mapped = gt_apply(fixed.xyz)
-    d2, idx = nearest_valid(mapped, moving.xyz, moving.mask)
+    d2, idx = nn1(mapped, moving.xyz, moving.mask)  # chunked: two 65,536 sets fit
     d = torch.sqrt(d2)
 
     n_fix = fixed.directions[:, 0, :]

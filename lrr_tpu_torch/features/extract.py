@@ -29,7 +29,7 @@ from lrr_tpu_torch.ops.eig3 import eigh3, unit
 from lrr_tpu_torch.ops.resample import sample_trilinear
 from lrr_tpu_torch.ops.sparsify import sparsify_mask
 from lrr_tpu_torch.types import (
-    CORNER, SHEET, TUBE, FeatureSet, KeypointSet, Volume, concat_feature_sets, pad_rows,
+    CORNER, SHEET, TUBE, FeatureSet, KeypointSet, Volume, concat_feature_sets, no_tf32, pad_rows,
 )
 
 SCORE_FLOOR = 1e-4  # NMS noise floor (itkFeatureImageFilter.txx:657)
@@ -321,9 +321,7 @@ def detect_features(vol: Volume, cfg: FeatureConfig) -> FeatureSet:
     Pyramid levels follow the reference's use of levels 1-2 of 3 (shrink
     factors 2 and 1; txx:1119-1137); the features of all levels merge before
     the strength-greedy spatial filter (ExtractFeatures.cxx:483-488)."""
-    # nothing here may run in TF32: scores feed strict comparisons
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    no_tf32()  # scores feed strict comparisons
     shrink_by_level = {0: 4, 1: 2, 2: 1}
     merged = None
     for level in cfg.used_levels:

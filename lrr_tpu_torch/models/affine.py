@@ -13,6 +13,7 @@ import dataclasses
 import torch
 
 from lrr_tpu_torch.ops.eig3 import eigvalsh3
+from lrr_tpu_torch.types import resolve_device
 
 
 def mv3(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -76,9 +77,24 @@ class Affine3D:
         ) + self.t[..., None, :]
 
     @classmethod
-    def identity(cls, dtype=torch.float32, device=None) -> "Affine3D":
+    def identity(cls, center=None, dtype=torch.float32, device=None) -> "Affine3D":
+        """The identity about `center` (default 0), on `device` (default: the
+        CUDA card, or the device of a `center` tensor)."""
+        if device is None and isinstance(center, torch.Tensor):
+            device = center.device
+        device = resolve_device(device, "Affine3D.identity")
         z = torch.zeros(3, dtype=dtype, device=device)
-        return cls(A=torch.eye(3, dtype=dtype, device=device), t=z, center=z.clone())
+        c = z.clone() if center is None else torch.as_tensor(center, dtype=dtype).to(device)
+        return cls(A=torch.eye(3, dtype=dtype, device=device), t=z, center=c)
+
+    @property
+    def theta(self) -> torch.Tensor:
+        """vec_row([A | t]), the estimation parameter vector [..., 12]."""
+        return torch.cat([self.A, self.t[..., None]], dim=-1).flatten(-2)
+
+    def homogeneous(self, x: torch.Tensor) -> torch.Tensor:
+        """h = [x - center; 1] for points [..., 3] -> [..., 4]."""
+        return torch.cat([x - self.center, torch.ones_like(x[..., :1])], dim=-1)
 
     def params_reference_order(self) -> torch.Tensor:
         """[A row-major (9), t (3)] (cdcl_trans_affine.txx:68-84)."""
@@ -100,6 +116,18 @@ class Affine3D:
             A=Ainv, t=-mv3(Ainv, self.t) + self.center,
             center=torch.zeros_like(self.t),
         )
+
+    def compose(self, inner: "Affine3D") -> "Affine3D":
+        """self after inner: z = self(inner(x)), with inner's center."""
+        return Affine3D(
+            A=mm3(self.A, inner.A), t=mv3(self.A, inner.t - self.center) + self.t,
+            center=inner.center,
+        )
+
+    def with_center(self, new_center: torch.Tensor) -> "Affine3D":
+        """The same map about another center."""
+        return Affine3D(A=self.A, t=self.t + mv3(self.A, new_center - self.center),
+                        center=new_center)
 
     def normalize(self, avg_rad_moving, avg_rad_fixed, center_moving, center_fixed):
         """To unit-radius coordinates (cdcl_trans_affine.txx:217-255); radii
@@ -140,11 +168,59 @@ def _covar_transform_matrix(s_A, s_t, c):
     return L
 
 
+def jacobian_wrt_par(trans: Affine3D, x: torch.Tensor) -> torch.Tensor:
+    """J [..., 3, 12] of y = Theta h with respect to theta: J[d, 4d:4d+4] = h
+    = [x - c, 1] (rrl_estimation_symmetric_ICP_matching_all.txx:475-536)."""
+    h = trans.homogeneous(x)
+    J = h.new_zeros(x.shape[:-1] + (3, 3, 4))
+    for d in range(3):
+        J[..., d, d, :] = h
+    return J.flatten(-2)
+
+
+def transfer_covariance(trans: Affine3D, covar: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """J C J^T [..., 3, 3] for a theta-order covariance C [12, 12], by its
+    block structure (h^T C_ik h per entry), as multiply-adds."""
+    h = trans.homogeneous(x)
+    Cb = covar.reshape(3, 4, 3, 4)
+    u = (h[..., None, :, None, None] * Cb).sum(-3)  # [..., i, k, l]
+    return (u * h[..., None, None, :]).sum(-1)
+
+
+def covariance_normalize(cov_w, arm, arf, cm, cf):
+    """Parameter covariance world -> normalised coordinates for a zero-center
+    world transform (cdcl_trans_affine.txx:217-255): A_n = (arm/arf) A_w,
+    t_n = (t_w + A_w cm - cf) / arf."""
+    s = arm / arf
+    L = torch.zeros((12, 12), dtype=cov_w.dtype, device=cov_w.device)
+    for i in range(3):
+        for j in range(3):
+            L[4 * i + j, 4 * i + j] = s
+        L[4 * i + 3, 4 * i + 3] = 1.0 / arf
+        for j in range(3):
+            L[4 * i + 3, 4 * i + j] = s * cm[j] / arm
+    return mm3(mm3(L, cov_w), L.T)
+
+
 def covariance_unnormalize(cov_n, arm, arf, cm, cf):
     """Parameter covariance normalized -> world: A_w = (arf/arm) A_n,
     t_w = arf t_n + cf - A_w cm.  cov_n [..., 12, 12], radii [...]."""
     L = _covar_transform_matrix(arf / arm, arf, cm)
     return L @ cov_n @ L.transpose(-1, -2)
+
+
+def normal_equations_terms(trans: Affine3D, from_xyz, to_xyz, projector, weight):
+    """Weighted normal equations for theta = vec_row([A | t]): minimises
+    sum_m w_m (Theta h_m - q_m)^T P_m (Theta h_m - q_m), h = [x - c; 1].
+    Returns (AtA [12, 12], Atb [12]), summed over the matches as
+    multiply-adds (no matmul, so no TF32)."""
+    h = trans.homogeneous(from_xyz)  # [M, 4]
+    wP = weight[:, None, None] * projector  # [M, i, k]
+    hh = h[:, :, None] * h[:, None, :]  # [M, j, l]
+    AtA = (wP[:, :, None, :, None] * hh[:, None, :, None, :]).sum(0).reshape(12, 12)
+    Pq = (projector * to_xyz[:, None, :]).sum(-1)  # [M, i]
+    Atb = ((weight[:, None] * Pq)[:, :, None] * h[:, None, :]).sum(0).reshape(12)
+    return AtA, Atb
 
 
 def pinv_hermitian(a: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,10 @@ import math
 
 import torch
 
-# Beaton-Tukey constant b = 4 (cdcl/cdcl_utils.h:160-166).
+# Beaton-Tukey constant b = 4 and the f-multiplier for k = 3.0
+# (cdcl/cdcl_utils.h:160-166).
 BT_B2 = 16.0
+BT_F = 2.9872
 
 
 def weight_bt(r2: torch.Tensor) -> torch.Tensor:
@@ -21,12 +23,73 @@ def weight_bt(r2: torch.Tensor) -> torch.Tensor:
     return torch.where(r2 <= BT_B2, w, torch.zeros_like(w))
 
 
+def rho_bt(r2: torch.Tensor) -> torch.Tensor:
+    """Modified Beaton-Tukey rho of a squared residual (cdcl_utils.h:158-178).
+    `torch.maximum` (not `clamp`) so that the gradient at r2 = 16 splits as
+    JAX's does."""
+    c = BT_B2 / 6.0
+    inner = 1.0 - torch.pow(torch.maximum(1.0 - r2 / BT_B2, torch.zeros_like(r2)), 3.0)
+    return torch.where(r2 > BT_B2, torch.full_like(r2, BT_F * c), BT_F * c * inner)
+
+
+def rho_p_bt(r2: torch.Tensor) -> torch.Tensor:
+    """d rho / d r2 (cdcl_utils.h:183-204)."""
+    temp = 1.0 - r2 / BT_B2
+    return torch.where(r2 > BT_B2, torch.zeros_like(r2), BT_F * 0.5 * temp * temp)
+
+
+def weight_bt_scaled(r2: torch.Tensor) -> torch.Tensor:
+    """The f-scaled BT weight of the EM-CDC objective (cdcl_utils.h:209-228)."""
+    return BT_F * weight_bt(r2)
+
+
+def weight_cauchy(r2: torch.Tensor) -> torch.Tensor:
+    """Cauchy weight, b^2 = 9 (cdcl_utils.h:232-237)."""
+    return 1.0 / (1.0 + r2 / 9.0)
+
+
+def gauss_weight(d: torch.Tensor, sigma, dim: int = 3) -> torch.Tensor:
+    """Isotropic Gaussian weight of offset vectors [..., dim]
+    (cdcl_utils.h:240-245, with its sqrt(sigma) normaliser quirk)."""
+    sigma = torch.as_tensor(sigma, dtype=d.dtype, device=d.device)
+    k = (2.0 * math.pi) ** (dim / 2.0) * torch.sqrt(sigma)
+    return torch.exp(-0.5 * torch.sum(d * d, -1) / (sigma * sigma)) / k
+
+
+def spatial_weight(d2: torch.Tensor, falloff: float = 5.0) -> torch.Tensor:
+    """Cauchy-like falloff on the squared normalised distance to the query
+    (cdcl_estimation_ICP_matching_all.txx:972-1004)."""
+    return 1.0 / (1.0 + falloff * d2)
+
+
 def _masked_sort(values: torch.Tensor, mask: torch.Tensor):
     """Sort ascending along the last dim with invalid entries pushed to the
     tail (float max), and count the valid ones."""
     big = torch.finfo(values.dtype).max
     v = torch.where(mask, values, torch.full_like(values, big))
     return torch.sort(v, dim=-1).values, mask.sum(-1)
+
+
+def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The lower median of the valid entries along the last dim (element
+    n // 2 of the sorted valid ones, as nth_element gives it).  Not
+    `nanmedian`, which averages the middle pair."""
+    v, n = _masked_sort(values, mask)
+    idx = torch.clamp(n // 2, 0, v.shape[-1] - 1)
+    return v.gather(-1, idx[..., None])[..., 0]
+
+
+def mad_scale(abs_residuals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Median absolute deviation about zero with the half-normal consistency
+    constant 1.4826 (rrel_util_median_abs_dev_scale)."""
+    return 1.4826 * masked_median(abs_residuals, mask)
+
+
+def weighted_scale(r2: torch.Tensor, weight: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """sqrt(sum w r^2 / sum w) over the last dim, the scale after the first
+    iteration (cdcl_estimation_ICP_matching_all.txx:731-733)."""
+    w = torch.where(mask, weight, torch.zeros_like(weight))
+    return torch.sqrt(torch.sum(w * r2, -1) / torch.clamp(torch.sum(w, -1), min=1e-30))
 
 
 def _half_normal_quantile(p: torch.Tensor) -> torch.Tensor:

@@ -76,18 +76,20 @@ def run_batch(
     `query_batch` fixes the queries of one staged run: a short last batch is
     padded by repeating its last query, so the wave schedule (which depends
     on the batch size) is the same for every batch.  The batch that starts
-    at query `b0` draws its `SamplingPlan` from a generator seeded with
-    `seed + b0`; `plan_for(ctx, b0, n_queries)` supplies the plan instead
-    where a caller wants to fix the draws."""
+    at query `b0` draws its `SamplingPlan` from a CPU generator seeded with
+    `seed + b0` (the same plan on every device); `plan_for(ctx, b0,
+    n_queries)` supplies the plan instead where a caller wants to fix the
+    draws."""
     device = resolve_device(device, "run_batch")
     os.makedirs(out_dir, exist_ok=True)
     cache_dir = cache_dir or os.path.join(out_dir, "artifacts")
     os.makedirs(cache_dir, exist_ok=True)
 
     def draw_plan(ctx, b0, n_queries):
-        g = torch.Generator(device=device).manual_seed(seed + b0)
+        g = torch.Generator().manual_seed(seed + b0)
         return draw_sampling_plan(
-            g, n_queries, cfg, ctx.moving_features.capacity, ctx.fixed_features.capacity
+            g, n_queries, cfg, ctx.moving_features.capacity, ctx.fixed_features.capacity,
+            device,
         )
 
     plan_for = plan_for or draw_plan

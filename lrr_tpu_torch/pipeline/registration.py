@@ -62,7 +62,7 @@ from lrr_tpu_torch.ops.voronoi import build_feature_voronoi
 from lrr_tpu_torch.ops.watershed import watershed_segmentation
 from lrr_tpu_torch.pipeline.regions import compact_feature_labels, select_features_by_labels
 from lrr_tpu_torch.sampling import SamplingPlan
-from lrr_tpu_torch.types import DescriptorSet, FeatureSet, Volume
+from lrr_tpu_torch.types import DescriptorSet, FeatureSet, Volume, no_tf32
 from lrr_tpu_torch.verify.svm import SvmModel, predict_probability, scale_measurements
 
 @dataclasses.dataclass
@@ -279,12 +279,6 @@ def _refine_candidate(
     return res, meas
 
 
-def _no_tf32() -> None:
-    """H3: nothing on these paths may run in TF32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 def _pass1_fn(ctx: PairContext, queries: torch.Tensor, cfg, plan: SamplingPlan):
     """Candidate generation + PASS-1 ranking for Q queries ([Q, C] outputs):
     the candidate initialisations, the rank order and the pre-refinement
@@ -355,7 +349,7 @@ def register_locations_staged(
     verifies, so every usable candidate is refined through the serving
     waves (verifier calibration runs so).  `plan` holds every random draw
     (`sampling.draw_sampling_plan`)."""
-    _no_tf32()
+    no_tf32()
     dev = ctx.device
     queries = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=dev))
     svm = svm.to(dev)
@@ -505,7 +499,7 @@ def register_locations(
     candidates still usable after refinement (valid, not oscillating).
     Maximal information at ~C times the staged path's work; `refined` is
     all ones.  The draws are the staged path's, so one plan serves both."""
-    _no_tf32()
+    no_tf32()
     dev = ctx.device
     queries = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=dev))
     svm = svm.to(dev)
@@ -601,7 +595,7 @@ def register_location_rigid(
     of that one lane, best candidate index, any usable); the result's A is
     a rotation by construction.  The refinement samples with the plan's
     rigid stream, PASS 1 with the candidates' own."""
-    _no_tf32()
+    no_tf32()
     query = torch.as_tensor(query, dtype=torch.float32, device=ctx.device)
     cmask, inits, angles, enough, *_ = _pass1_fn(ctx, query[None], cfg, plan)
     usable = (cmask & enough)[0]
@@ -632,7 +626,7 @@ def watch_candidate(
     `register_location` and the staged waves do, so the replayed refinement
     is the production refinement with observability added.  Returns the
     replayed ICPResult of that one lane."""
-    _no_tf32()
+    no_tf32()
     query = torch.as_tensor(query, dtype=torch.float32, device=ctx.device)
     cands = generate_candidates(
         query[None], ctx.moving_descriptors, ctx.fixed_descriptors, cfg.indexing,

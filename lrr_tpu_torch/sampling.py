@@ -1,8 +1,9 @@
 """The sampling plan: every random draw of the serving path, as tensors.
 
 lrr_tpu draws from a tree of threefry keys; the port takes the same draws
-from explicit tensors, one entry per (query, candidate).  On the card the
-plan is drawn from a seeded `torch.Generator` (`draw_sampling_plan`); the
+from explicit tensors, one entry per (query, candidate).  The plan is drawn
+from a seeded CPU `torch.Generator` and moved to the device
+(`draw_sampling_plan`), so one seed gives one plan everywhere; the
 parity tests build it by walking lrr_tpu's own key tree instead, so both
 packages sample identical match windows.
 
@@ -142,21 +143,25 @@ def draw_sampling_plan(
     cfg: PipelineConfig,
     n_moving: int,
     n_fixed: int,
+    device=None,
 ) -> SamplingPlan:
-    """Draw a plan on the generator's device.  `n_moving`/`n_fixed` are the
-    feature-set capacities of the pair context."""
-    dev = generator.device
+    """Draw a plan from a CPU `generator` and move it to `device` (default:
+    the CPU), so that one seed gives the same plan on every device.
+    `n_moving`/`n_fixed` are the feature-set capacities of the pair
+    context."""
+    if generator.device.type != "cpu":
+        raise ValueError("draw_sampling_plan: draw from a CPU generator (one seed, one plan "
+                         f"on every device), not one on {generator.device}")
     Q, C = n_queries, cfg.indexing.num_candidates
     T = cfg.estimation.max_iterations + 1
 
-    def u(n):
-        return torch.rand((Q, C, n), generator=generator, device=dev)
+    def u(*shape, lead=(Q, C)):
+        return torch.rand(lead + shape, generator=generator).to(device)
 
     def off(*shape, lead=(Q, C)):
         return torch.randint(
-            0, _OFFSET_RANGE, lead + shape, generator=generator, device=dev,
-            dtype=torch.int64,
-        )
+            0, _OFFSET_RANGE, lead + shape, generator=generator, dtype=torch.int64,
+        ).to(device)
 
     # the per-candidate streams first, in this order: the rigid stream was
     # added after them and leaves their values as they were
@@ -167,8 +172,7 @@ def draw_sampling_plan(
         icp_stats_offset_f=off(), icp_stats_offset_b=off(),
         cov_scores_f=u(n_fixed), cov_scores_m=u(n_moving),
         cov_offset_b=off(), cov_offset_f=off(),
-        rigid_scores_m=torch.rand((Q, n_moving), generator=generator, device=dev),
-        rigid_scores_f=torch.rand((Q, n_fixed), generator=generator, device=dev),
+        rigid_scores_m=u(n_moving, lead=(Q,)), rigid_scores_f=u(n_fixed, lead=(Q,)),
         rigid_offsets_f=off(T, lead=(Q,)), rigid_offsets_b=off(T, lead=(Q,)),
         rigid_stats_offset_f=off(lead=(Q,)), rigid_stats_offset_b=off(lead=(Q,)),
     )

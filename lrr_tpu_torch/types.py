@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 # Feature shape classes (cdcl/cdcl_feature_with_shape.h:30).
@@ -31,6 +32,13 @@ def resolve_device(device, who: str) -> torch.device:
             )
         device = "cuda"
     return torch.device(device)
+
+
+def no_tf32() -> None:
+    """H3: nothing on the port's paths may run in TF32 (a matmul or a
+    convolution would round its operands to 10 bits of mantissa)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def _to(obj, device):
@@ -143,4 +151,62 @@ def concat_feature_sets(a: FeatureSet, b: FeatureSet) -> FeatureSet:
             f.name: torch.cat([getattr(a, f.name), getattr(b, f.name)], dim=0)
             for f in dataclasses.fields(a)
         }
+    )
+
+
+@dataclasses.dataclass
+class MatchSet:
+    """Fixed-shape correspondences of one estimation direction
+    (cdcl/cdcl_match.h:18): moving point i (from_xyz [M, 3], untransformed)
+    matches to_xyz [M, 3], with the fixed feature's projector [M, 3, 3], a
+    robust weight [M] and a validity mask [M]."""
+
+    from_xyz: torch.Tensor
+    to_xyz: torch.Tensor
+    projector: torch.Tensor
+    weight: torch.Tensor
+    mask: torch.Tensor
+
+    def to(self, device) -> "MatchSet":
+        return _to(self, device)
+
+
+def pad_to(x: np.ndarray, n: int, axis: int = 0, fill=0) -> np.ndarray:
+    """numpy-side helper: pad an array to length n along `axis`."""
+    pad = n - x.shape[axis]
+    if pad < 0:
+        raise ValueError(f"cannot pad {x.shape[axis]} down to {n}")
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, pad)
+    return np.pad(x, widths, constant_values=fill)
+
+
+def feature_set_from_numpy(
+    xyz: np.ndarray,
+    strength: np.ndarray,
+    shape: np.ndarray,
+    projector: np.ndarray,
+    directions: np.ndarray,
+    capacity: int | None = None,
+    dtype=np.float32,
+    device=None,
+) -> FeatureSet:
+    """A padded FeatureSet on `device` (default: the CUDA card) from host
+    arrays of true length n."""
+    device = resolve_device(device, "feature_set_from_numpy")
+    n = xyz.shape[0]
+    cap = capacity if capacity is not None else n
+    mask = np.zeros((cap,), bool)
+    mask[:n] = True
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return FeatureSet(
+        xyz=dev(pad_to(xyz.astype(dtype), cap)),
+        strength=dev(pad_to(strength.astype(dtype), cap)),
+        shape=dev(pad_to(shape.astype(np.int32), cap)),
+        projector=dev(pad_to(projector.astype(dtype), cap)),
+        directions=dev(pad_to(directions.astype(dtype), cap)),
+        mask=dev(mask),
     )

@@ -15,7 +15,7 @@ import os
 import numpy as np
 import torch
 
-from lrr_tpu_torch.types import resolve_device
+from lrr_tpu_torch.types import no_tf32, resolve_device
 
 # Hard-coded measurement scaling (itkLocationRegistration.cxx:2107-2109).
 REFERENCE_FEATURE_MIN = np.array(
@@ -181,7 +181,7 @@ def fit_rbf_classifier(
     steps in float32; the Gram matrix product never runs in TF32.
     """
     device = resolve_device(device, "fit_rbf_classifier")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    no_tf32()
     X = np.asarray(X, np.float32)
     yy = np.where(np.asarray(y) > 0, 1.0, -1.0).astype(np.float32)
     n = X.shape[0]

@@ -65,9 +65,12 @@ def main() -> None:
     q = torch.tensor(np.asarray(meta["queries"], np.float32), device=dev)
 
     def serve(run):
-        g = torch.Generator(device=dev).manual_seed(args.seed * 1000 + run)
+        # drawn on the CPU and moved, which every version of the package
+        # (see --root) accepts
+        g = torch.Generator().manual_seed(args.seed * 1000 + run)
         plan = draw_sampling_plan(g, len(q), cfg, ctx.moving_features.capacity,
                                   ctx.fixed_features.capacity)
+        plan = type(plan)(**{k: None if v is None else v.to(dev) for k, v in vars(plan).items()})
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = register_locations_staged(ctx, q, cfg, svm, plan)

@@ -443,8 +443,8 @@ def test_region_entry_points_on_gpu(cuda):
 
     queries = torch.tensor(meta["queries"], dtype=torch.float32, device=cuda)
     plan = draw_sampling_plan(
-        torch.Generator(device=cuda).manual_seed(0), len(queries), cfg,
-        ctx.moving_features.capacity, ctx.fixed_features.capacity)
+        torch.Generator().manual_seed(0), len(queries), cfg,
+        ctx.moving_features.capacity, ctx.fixed_features.capacity, cuda)
     svm = load_default_verifier()
     n0 = kernels.LAUNCHES["normal_equations"]
     staged = register_locations_staged(ctx, queries, cfg, svm, plan)
@@ -548,3 +548,79 @@ def test_stage_timers_wait_for_the_card(cuda):
                 a @ a
         torch.cuda.synchronize()
     assert synced.totals["matmul"] > 2 * loose.totals["matmul"]
+
+
+# ---------------------------------------------------------------------------
+# the estimate family and the sampling plans
+# ---------------------------------------------------------------------------
+
+
+def _cov_pair(device, n=400, seed=1):
+    from lrr_tpu_torch.estimation.cdc import CovFeatures
+
+    rng = np.random.default_rng(seed)
+    xyz = torch.from_numpy(rng.uniform(0, 30, (n, 3)).astype(np.float32)).to(device)
+    cov = (0.3 * torch.eye(3, device=device)).expand(n, 3, 3)
+    mask = torch.ones(n, dtype=torch.bool, device=device)
+    t = torch.tensor([1.2, -0.7, 0.4], device=device)
+    return CovFeatures(xyz, cov, mask), CovFeatures(xyz + t, cov, mask)
+
+
+@pytest.mark.gpu
+def test_compute_weights_and_run_cdc_bit_identical_run_to_run(cuda):
+    """No atomic scatter-add, stable sorts: two runs give the same bits."""
+    from lrr_tpu_torch.estimation.cdc import compute_weights, run_cdc
+    from lrr_tpu_torch.models.affine import Affine3D
+
+    mov, fix = _cov_pair(cuda)
+    covar = 1e-2 * torch.eye(12, device=cuda)
+    a = compute_weights(Affine3D.identity(device=cuda), covar, mov, fix, 100)
+    b = compute_weights(Affine3D.identity(device=cuda), covar, mov, fix, 100)
+    assert torch.equal(a.weight, b.weight) and torch.equal(a.mask, b.mask)
+    assert torch.equal(a.to_xyz, b.to_xyz)
+    for kw in ({}, {"use_transfer": True, "symmetric": True}):
+        r1 = run_cdc(mov, fix, Affine3D.identity(device=cuda), max_iterations=8, **kw)
+        r2 = run_cdc(mov, fix, Affine3D.identity(device=cuda), max_iterations=8, **kw)
+        assert r1.iteration == r2.iteration
+        assert torch.equal(r1.trans.A, r2.trans.A) and torch.equal(r1.trans.t, r2.trans.t)
+        assert torch.equal(r1.covar, r2.covar)
+        assert (r1.transfer is None) or torch.equal(r1.transfer, r2.transfer)
+
+
+@pytest.mark.gpu
+def test_plan_drawn_for_the_card_equals_the_cpus(cuda):
+    from lrr_tpu_torch.config import pipeline_config_from_dict
+    from lrr_tpu_torch.pipeline.intensity import draw_intensity_points
+
+    with open(SMALL + ".json") as f:
+        cfg = pipeline_config_from_dict(json.load(f)["config"])
+    on_cpu = draw_sampling_plan(torch.Generator().manual_seed(3), 2, cfg, 50, 60)
+    on_card = draw_sampling_plan(torch.Generator().manual_seed(3), 2, cfg, 50, 60, cuda)
+    for name, v in vars(on_cpu).items():
+        assert getattr(on_card, name).device.type == "cuda"
+        assert torch.equal(getattr(on_card, name).cpu(), v), name
+    with pytest.raises(ValueError, match="CPU generator"):
+        draw_sampling_plan(torch.Generator(device=cuda), 2, cfg, 50, 60)
+    a = draw_intensity_points(7, [(8, 9, 10)], 2, 64, "cpu")
+    b = draw_intensity_points(7, [(8, 9, 10)], 2, 64, cuda)
+    assert torch.equal(a[0], b[0].cpu())
+
+
+@pytest.mark.gpu
+def test_intensity_percentile_past_two_to_the_24(cuda):
+    """`register_intensity` normalises by a sort: a volume of 16,778,000
+    voxels, past 2^24 (torch.quantile refuses it), gives numpy's
+    linear-interpolated 1 % and 99 % percentiles on the card."""
+    from lrr_tpu_torch.pipeline.intensity import _normalize_intensity, percentile
+
+    n = 16778 * 1000
+    assert n > 1 << 24
+    rng = np.random.default_rng(0)
+    v = rng.gamma(2.0, 100.0, n).astype(np.float32)
+    t = torch.from_numpy(v).to(cuda)
+    for p in (1.0, 99.0):
+        got = float(percentile(t, p))
+        want = float(np.percentile(v.astype(np.float64), p))
+        assert abs(got - want) <= 1e-5 * abs(want), (p, got, want)
+    out = _normalize_intensity(t.reshape(-1, 1000))
+    assert out.shape == (n // 1000, 1000) and float(out.min()) == 0.0 and float(out.max()) == 1.0

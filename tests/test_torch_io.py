@@ -510,13 +510,17 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
 
 
 def test_new_modules_import_neither_jax_nor_lrr_tpu():
-    """Importing the port's command line and every module of the file-based
-    pipeline leaves jax and lrr_tpu out of `sys.modules`."""
+    """Importing the port's command line, every module of the file-based
+    pipeline and every module of the estimate family leaves jax and lrr_tpu
+    out of `sys.modules`."""
     mods = [
         "cli", "io", "io.mhd", "io.native_loader", "io.vtk_xml", "io.features_io", "io.dicom",
         "io.svmlight", "utils.timers", "pipeline.results", "pipeline.artifacts", "pipeline.batch",
         "verify.svm", "verify.smo", "verify.surrogate", "eval", "eval.repeatability",
         "eval.compare", "eval.indexing_eval", "viz", "viz.panels",
+        "ops.robust", "ops.knn", "ops.geometry", "ops.subsample", "models.affine",
+        "models.similarity", "models.bspline", "estimation.icp_classic",
+        "estimation.similarity2d", "estimation.lbfgs", "estimation.cdc", "pipeline.intensity",
     ]
     code = (
         "import importlib, sys\n"

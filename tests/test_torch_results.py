@@ -71,7 +71,7 @@ def test_params_reference_order_and_back():
     back = Affine3D.from_params_reference_order(
         got.trans.params_reference_order(), got.trans.center)
     assert torch.equal(back.A, got.trans.A) and torch.equal(back.t, got.trans.t)
-    eye = Affine3D.identity()
+    eye = Affine3D.identity(device="cpu")
     assert torch.equal(eye.apply(torch.ones(2, 3)), torch.ones(2, 3))
 
 

@@ -330,3 +330,42 @@ def torch_svm(model):
         gamma=float(model.gamma), rho=float(model.rho), sv=t_(model.sv, torch.float32),
         sv_coef=t_(model.sv_coef, torch.float32), prob_a=float(model.prob_a),
         prob_b=float(model.prob_b), labels=tuple(int(v) for v in model.labels))
+
+
+# ---------------------------------------------------------------------------
+# the estimate family and the ground-truth models across the two packages
+# ---------------------------------------------------------------------------
+
+
+def torch_cov_features(cf):
+    """lrr_tpu CovFeatures -> the port's (CPU)."""
+    from lrr_tpu_torch.estimation.cdc import CovFeatures
+
+    return CovFeatures(t_(cf.xyz), t_(cf.cov), t_(cf.mask))
+
+
+def torch_cdc_matches(m):
+    """lrr_tpu CdcMatches -> the port's, field for field."""
+    from lrr_tpu_torch.estimation.cdc import CdcMatches
+
+    return _fields_to_torch(m, CdcMatches)
+
+
+def torch_similarity2d(s):
+    from lrr_tpu_torch.models.similarity import Similarity2D
+
+    return _fields_to_torch(s, Similarity2D)
+
+
+def torch_bspline(b):
+    """lrr_tpu BSplineTransform -> the port's (CPU)."""
+    from lrr_tpu_torch.models.bspline import BSplineTransform
+
+    return _fields_to_torch(b, BSplineTransform)
+
+
+def torch_deformation_field(f):
+    """lrr_tpu DeformationField -> the port's (CPU)."""
+    from lrr_tpu_torch.models.bspline import DeformationField
+
+    return _fields_to_torch(f, DeformationField)
