@@ -82,6 +82,20 @@ Phases, one line each; any failure raises and exits non-zero:
               phase 6's 400 x 350 x 350 pair.  Seconds, iterations,
               `converged`, the median error against the true map next to the
               identity's; no kernel is on this path.
+ 13. parallel  (after phase 10, before phase 11) two ranks on the one card,
+              subprocesses of this script joined through LRR_COORDINATOR
+              (gloo: NCCL refuses two ranks on one device), each loading the
+              kernels phase 2 built: `prepare_pair(mesh=)` at the reference
+              constants (phase 6's features and maps, SHA-256 or proven
+              ties), phase 7's 16 queries and plan served with the lanes
+              split (phase 7's selections; >= 12 verified, < 1.0 mm), one
+              candidate's ICP with its 8,000-match windows split against the
+              one-process run, `cli batch` over phase 10's pairs file (pair
+              11's selections); seconds, backend, peak memory and K1 / K2
+              launches and shapes of each rank.  The ranks share the card:
+              no scaling figure.
+Phase 10 also holds pair 12 to the bench's bars against lrr_tpu's figure for
+seed 12 (lrr_tpu_torch/data/bench_pair_s64_seed12.json).
 Then a JSON line of per-kernel results, the card line, and last
 {"ok": true, "device": {...}}.
 """
@@ -89,12 +103,14 @@ Then a JSON line of per-kernel results, the card line, and last
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -356,6 +372,17 @@ def acceptance_stats(out, queries: np.ndarray, true) -> dict:
     error of the selected transform on 20 probes around the query."""
     sel = out.selected.cpu().numpy()
     rank = out.rank.cpu().numpy()
+    errs = query_errors(out, queries, true)
+    return {
+        "verified_frac": float((sel >= 0).mean()),
+        "rank0_frac": float((sel == rank[:, 0]).mean()),
+        "median_gt_error_mm": float(np.median(errs)) if errs else None,
+    }
+
+
+def query_errors(out, queries: np.ndarray, true) -> list[float]:
+    """`acceptance_stats`' per-query errors (mm) of the verified queries."""
+    sel = out.selected.cpu().numpy()
     errs = []
     inv = true.inverse()
     for q in range(sel.size):
@@ -368,11 +395,7 @@ def acceptance_stats(out, queries: np.ndarray, true) -> dict:
         src = inv.apply(torch.as_tensor(probe, device=tr.A.device))
         err = torch.linalg.norm(tr.apply(src) - true.apply(src), dim=1)
         errs.append(float(np.median(err.cpu().numpy())))
-    return {
-        "verified_frac": float((sel >= 0).mean()),
-        "rank0_frac": float((sel == rank[:, 0]).mean()),
-        "median_gt_error_mm": float(np.median(errs)) if errs else None,
-    }
+    return errs
 
 
 def load_bench_meta():
@@ -651,6 +674,7 @@ def run_stage1_reference(card: str):
     )
 
     counts = context_counts(ctx, keypoints)
+    digests = context_digests(ctx)
     phase(
         "stage1_reference", card=card, volume=list(shape), phantom_s=phantom_s, stage_s=seconds,
         **counts, repeatability_2mm=rep_dist, repeatability_2mm_20deg=rep_angle,
@@ -660,7 +684,7 @@ def run_stage1_reference(card: str):
         exact_builds_equal_on_subbox=exact_builds_equal, subbox_brute_force_s=brute_s,
         subbox_voxels_differing_from_map=differs_from_map,
         grids_baked=[ctx.moving_grid is not None, ctx.fixed_grid is not None],
-        peak_mem_gb=peak_gb,
+        peak_mem_gb=peak_gb, digests=digests,
     )
     if min(counts["features"]) < 30000:
         raise AssertionError(f"stage1_reference: feature counts {counts['features']} below 30000")
@@ -675,7 +699,23 @@ def run_stage1_reference(card: str):
         raise AssertionError("stage1_reference: the two exact Voronoi builds differ")
     if not same_bits:
         raise AssertionError("stage1_reference: two runs of detect_features differ")
-    return ctx, moving, fixed, true, cfg
+    return ctx, moving, fixed, true, cfg, digests
+
+
+FEATURE_FIELDS = ("xyz", "strength", "shape", "projector", "directions", "mask")
+
+
+def sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def context_digests(ctx) -> dict:
+    """SHA-256 of the bytes of a context's Voronoi maps and feature sets."""
+    return {
+        "moving_vor": sha256(ctx.moving_vor.index_vol), "fixed_vor": sha256(ctx.fixed_vor.index_vol),
+        **{f"{side}.{f}": sha256(getattr(getattr(ctx, side), f))
+           for side in ("moving_features", "fixed_features") for f in FEATURE_FIELDS},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -791,7 +831,7 @@ def run_serve_reference(seed: int, card: str, ref):
     from lrr_tpu_torch.sampling import draw_sampling_plan
     from lrr_tpu_torch.verify.svm import load_default_verifier
 
-    ctx, moving, fixed, true, cfg = ref
+    ctx, moving, fixed, true, cfg, _ = ref
     dev = ctx.device
     ctx_r, seg = timed_segment_pair(moving, fixed, ctx)
 
@@ -925,7 +965,14 @@ def run_serve_reference(seed: int, card: str, ref):
     if not bare_equal:
         raise AssertionError("serve_reference: the run from the bare index maps differs "
                              "from the run from the grids")
-    return launches, dict(k1_shapes)
+    # what phase 13 serves again over two ranks: the last run's plan and result
+    served = {"plan_seed": seed * 1000 + 700 + 2, "selected": sel.tolist(),
+              "verified": out.verified.cpu().numpy().tolist(),
+              "refined": out.refined.cpu().numpy().tolist(),
+              "selected_trans": {str(i): {k: getattr(out.trans, k)[i, int(sel[i])].tolist()
+                                          for k in ("A", "t", "center")}
+                                 for i in range(Q) if sel[i] >= 0}}
+    return launches, dict(k1_shapes), served
 
 
 def whole_regions(sel: torch.Tensor, box: torch.Tensor, labels: torch.Tensor) -> bool:
@@ -1182,7 +1229,7 @@ def run_cli_reference(seed: int, card: str, ref):
     from lrr_tpu_torch.types import Volume
     from lrr_tpu_torch.verify.svm import load_default_verifier
 
-    ctx, moving, fixed, true, cfg = ref
+    ctx, moving, fixed, true, cfg, _ = ref
     dev = ctx.device
     queries = reference_queries(moving)
     problems = []
@@ -1373,9 +1420,11 @@ def run_cli_reference(seed: int, card: str, ref):
     return launches, k1_shapes, k2_shapes
 
 
-def run_batch_calibrate(seed: int, card: str):
+def run_batch_calibrate(seed: int, card: str, work: str):
     """Phase 10: `run_batch` with a failing job and a resume, then
-    verifier calibration on its first pair, at bench scale."""
+    verifier calibration on its first pair, at bench scale.  The inputs
+    written under `work` (volumes, `pairs.txt`, `locs.txt`) stay for phase
+    13."""
     from lrr_tpu_torch import cli
     from lrr_tpu_torch.io import native_loader
     from lrr_tpu_torch.io.svmlight import write_svmlight
@@ -1397,164 +1446,173 @@ def run_batch_calibrate(seed: int, card: str):
     cal_queries = np.asarray(meta["queries"], np.float32)  # 64, as bench.py calibrates
     queries = cal_queries[:16]
     ref = meta["lrr_tpu_reference"]
+    with open(BENCH + "_seed12.json") as f:
+        ref12 = json.load(f)["lrr_tpu_reference"]
     problems = []
-    work = tempfile.mkdtemp(prefix="lrr_batch_calibrate_")
 
     def p(name: str) -> str:
         return os.path.join(work, name)
 
+    kernels.reset_launch_counts()
+    trues = {}
+    for s in (11, 12):
+        fixed, moving, trues[s] = make_pair(
+            tuple(pair["shape_zyx"]), rotation_deg=pair["rotation_deg"],
+            translation=tuple(pair["translation"]), seed=s)
+        write_volume(p(f"moving{s}.mhd"), moving)
+        write_volume(p(f"fixed{s}.mhd"), fixed)
+    del fixed, moving
+    write_locs(p("locs.txt"), queries)
+    with open(p("pairs.txt"), "w") as f:
+        f.write(f"pair11 {p('moving11.mhd')} {p('fixed11.mhd')} {p('locs.txt')}\n")
+        f.write(f"absent {p('no_such_volume.mhd')} {p('fixed11.mhd')} {p('locs.txt')}\n")
+        f.write(f"pair12 {p('moving12.mhd')} {p('fixed12.mhd')} {p('locs.txt')}\n")
+    jobs = batch.load_pair_list(p("pairs.txt"))
+    svm = load_default_verifier()
+
+    # the batched results of every staged run, by job: the script reads
+    # acceptance from them, `run_batch` itself only writes files
+    served = []
+    staged = batch.register_locations_staged
+
+    def keeping(ctx, q, *args, **kwargs):
+        out = staged(ctx, q, *args, **kwargs)
+        served.append(out)
+        return out
+
+    def run(out_dir):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = batch.run_batch(jobs, cfg, svm, out_dir, seed=seed, query_batch=8)
+        torch.cuda.synchronize()
+        return report, time.perf_counter() - t0
+
+    batch.register_locations_staged = keeping
     try:
-        kernels.reset_launch_counts()
-        trues = {}
-        for s in (11, 12):
-            fixed, moving, trues[s] = make_pair(
-                tuple(pair["shape_zyx"]), rotation_deg=pair["rotation_deg"],
-                translation=tuple(pair["translation"]), seed=s)
-            write_volume(p(f"moving{s}.mhd"), moving)
-            write_volume(p(f"fixed{s}.mhd"), fixed)
-        del fixed, moving
-        write_locs(p("locs.txt"), queries)
-        with open(p("pairs.txt"), "w") as f:
-            f.write(f"pair11 {p('moving11.mhd')} {p('fixed11.mhd')} {p('locs.txt')}\n")
-            f.write(f"absent {p('no_such_volume.mhd')} {p('fixed11.mhd')} {p('locs.txt')}\n")
-            f.write(f"pair12 {p('moving12.mhd')} {p('fixed12.mhd')} {p('locs.txt')}\n")
-        jobs = batch.load_pair_list(p("pairs.txt"))
-        svm = load_default_verifier()
-
-        # the batched results of every staged run, by job: the script reads
-        # acceptance from them, `run_batch` itself only writes files
-        served = []
-        staged = batch.register_locations_staged
-
-        def keeping(ctx, q, *args, **kwargs):
-            out = staged(ctx, q, *args, **kwargs)
-            served.append(out)
-            return out
-
-        def run(out_dir):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            report = batch.run_batch(jobs, cfg, svm, out_dir, seed=seed, query_batch=8)
-            torch.cuda.synchronize()
-            return report, time.perf_counter() - t0
-
-        batch.register_locations_staged = keeping
-        try:
-            report, first_s = run(p("out"))
-        finally:
-            batch.register_locations_staged = staged
-        statuses = [(e["name"], e["status"]) for e in report["pairs"]]
-        if (report["completed"], report["failed"], report["skipped"]) != (2, 1, 0) or statuses != [
-                ("pair11", "ok"), ("absent", "failed"), ("pair12", "ok")]:
-            errors = [e.get("error") for e in report["pairs"] if e["status"] == "failed"]
-            raise AssertionError(f"batch_calibrate: run_batch reported {statuses}: {errors}")
-        if "no_such_volume" not in report["pairs"][1]["error"]:
-            problems.append(f"the absent job failed otherwise: {report['pairs'][1]['error']}")
-
-        # pair 11 is the bench pair: its 16 queries inside phase 4's bounds
-        # (two batches of 8; pair 12's two follow)
-        true11 = trues[11]
-        acc = {}
-        for name, outs, true in (("pair11", served[:2], true11), ("pair12", served[2:], trues[12])):
-            stats = [acceptance_stats(o, queries[i * 8 : i * 8 + 8], true) for i, o in enumerate(outs)]
-            sel = np.concatenate([o.selected.cpu().numpy() for o in outs])
-            rank0 = np.concatenate([o.rank[:, 0].cpu().numpy() for o in outs])
-            errs = [s["median_gt_error_mm"] for s in stats if s["median_gt_error_mm"] is not None]
-            acc[name] = {"verified_frac": float((sel >= 0).mean()),
-                         "rank0_frac": float((sel == rank0).mean()),
-                         "median_gt_error_mm_by_batch": errs}
-        del served
-        slack = 2.0 / len(queries)
-        a11 = acc["pair11"]
-        err_cap = max(1.0, 1.5 * ref["median_gt_error_mm"])
-        if a11["verified_frac"] < ref["verified_frac"] - slack:
-            problems.append(f"pair11 verified_frac {a11['verified_frac']}")
-        if a11["rank0_frac"] < ref["rank0_frac"] - slack:
-            problems.append(f"pair11 rank0_frac {a11['rank0_frac']}")
-        if not a11["median_gt_error_mm_by_batch"] or max(a11["median_gt_error_mm_by_batch"]) > err_cap:
-            problems.append(f"pair11 median GT error {a11['median_gt_error_mm_by_batch']} above {err_cap}")
-
-        # a second run skips on the markers; with the markers gone it resumes
-        # from the cached contexts and writes the same bytes
-        def result_files(out_dir):
-            return {f: open(os.path.join(out_dir, f), "rb").read()
-                    for f in sorted(os.listdir(out_dir)) if "_results" in f}
-
-        first = result_files(p("out"))
-        report2, skip_s = run(p("out"))
-        if (report2["completed"], report2["failed"], report2["skipped"]) != (0, 1, 2):
-            problems.append(f"the second run did not skip on the markers: {report2}")
-        for name in ("pair11", "pair12"):
-            os.remove(p(f"out/{name}.done"))
-        stamp = os.path.getmtime(p("out/artifacts/pair11.npz"))
-        report3, resume_s = run(p("out"))
-        resumed_equal = result_files(p("out")) == first
-        if report3["completed"] != 2 or os.path.getmtime(p("out/artifacts/pair11.npz")) != stamp:
-            problems.append("the resumed run did not use the cached contexts")
-        if not resumed_equal or len(first) != 2 * 2 * len(queries):
-            problems.append("the resumed run's results are not byte-equal to the first run's")
-        batch_launches = dict(kernels.LAUNCHES)
-
-        # calibration on pair 11, from the context the batch cached
-        ctx = load_pair_context(p("out/artifacts/pair11.npz"))
-        dev = ctx.device
-        true11 = Affine3D(*(t.to(dev) for t in (true11.A, true11.t, true11.center)))
-
-        def plan_for(run_id: int, n_queries: int):
-            g = torch.Generator().manual_seed(seed * 1000 + 900 + run_id)
-            return draw_sampling_plan(g, n_queries, cfg, ctx.moving_features.capacity,
-                                      ctx.fixed_features.capacity, dev)
-
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        X, y = surrogate.collect_labeled_measurements(
-            ctx, cfg, true11, cal_queries, plan_for(0, len(cal_queries)))
-        torch.cuda.synchronize()
-        collect_s = time.perf_counter() - t0
-        n_pos, n_neg = int((y > 0).sum()), int((y == 0).sum())
-        if min(n_pos, n_neg) < 8:
-            raise AssertionError(f"batch_calibrate: {n_pos} aligned and {n_neg} misaligned "
-                                 "measurements collected, want 8 of each")
-        Xs = scale_measurements(torch.from_numpy(X)).numpy()
-        write_svmlight(p("train.txt"), Xs, np.where(y > 0, 1.0, -1.0))
-
-        t0 = time.perf_counter()
-        _, _, smo_iterations = smo.smo_solve(
-            smo.rbf_kernel(Xs.astype(np.float64), 0.125), np.where(y > 0, 1.0, -1.0), 1.0)
-        models = {"smo": smo.train_c_svc(Xs, y)}
-        smo_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        models["klr"] = fit_rbf_classifier(Xs, y)  # on the card
-        torch.cuda.synchronize()
-        klr_s = time.perf_counter() - t0
-
-        trained = {}
-        q_dev = torch.as_tensor(queries, device=dev)
-        for name, model in models.items():
-            probs = predict_probability(model.to(dev), torch.from_numpy(Xs).to(dev)).cpu().numpy()
-            accuracy = float(((probs > 0.5) == (y > 0)).mean())
-            with open(p(f"{name}.model"), "w") as f:
-                f.write(serialize_libsvm_model(model))
-            cli.main(["svm-predict", p("train.txt"), p(f"{name}.model"), p(f"{name}.pred"), "-b"])
-            from_file = np.loadtxt(p(f"{name}.pred"), skiprows=1)[:, 1]
-            file_diff = float(np.abs(from_file - probs).max())
-            out = register_locations_staged(ctx, q_dev, cfg, model, plan_for(1, len(queries)))
-            torch.cuda.synchronize()
-            trained[name] = {
-                "support_vectors": int(model.sv.shape[0]), "training_accuracy": accuracy,
-                "serialised_max_abs_probability_diff": file_diff,
-                **acceptance_stats(out, queries, true11),
-            }
-            if accuracy < 0.9:
-                problems.append(f"{name}: training accuracy {accuracy} below 0.9")
-            if file_diff > 1e-5:
-                problems.append(f"{name}: the serialised model's probabilities differ by {file_diff}")
-        launches = dict(kernels.LAUNCHES)
-        k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
-        total_bytes = tree_bytes(work)
+        report, first_s = run(p("out"))
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        batch.register_locations_staged = staged
+    statuses = [(e["name"], e["status"]) for e in report["pairs"]]
+    if (report["completed"], report["failed"], report["skipped"]) != (2, 1, 0) or statuses != [
+            ("pair11", "ok"), ("absent", "failed"), ("pair12", "ok")]:
+        errors = [e.get("error") for e in report["pairs"] if e["status"] == "failed"]
+        raise AssertionError(f"batch_calibrate: run_batch reported {statuses}: {errors}")
+    if "no_such_volume" not in report["pairs"][1]["error"]:
+        problems.append(f"the absent job failed otherwise: {report['pairs'][1]['error']}")
 
+    # pair 11 is the bench pair: its 16 queries inside phase 4's bounds
+    # (two batches of 8; pair 12's two follow)
+    true11 = trues[11]
+    acc = {}
+    for name, outs, true in (("pair11", served[:2], true11), ("pair12", served[2:], trues[12])):
+        stats = [acceptance_stats(o, queries[i * 8 : i * 8 + 8], true) for i, o in enumerate(outs)]
+        pooled = [e for i, o in enumerate(outs)
+                  for e in query_errors(o, queries[i * 8 : i * 8 + 8], true)]
+        sel = np.concatenate([o.selected.cpu().numpy() for o in outs])
+        rank0 = np.concatenate([o.rank[:, 0].cpu().numpy() for o in outs])
+        errs = [s["median_gt_error_mm"] for s in stats if s["median_gt_error_mm"] is not None]
+        acc[name] = {"verified_frac": float((sel >= 0).mean()),
+                     "rank0_frac": float((sel == rank0).mean()),
+                     "median_gt_error_mm_by_batch": errs,
+                     "median_gt_error_mm": float(np.median(pooled)) if pooled else None}
+    del served
+    slack = 2.0 / len(queries)
+    a11 = acc["pair11"]
+    err_cap = max(1.0, 1.5 * ref["median_gt_error_mm"])
+    # pair 12 at the bench's bars against lrr_tpu's figure for seed 12
+    # (lrr_tpu_torch/data/bench_pair_s64_seed12.json): the verified share
+    # and the median error over all its queries, as bench.py takes them
+    a12 = acc["pair12"]
+    err_cap12 = max(1.0, 1.5 * ref12["median_gt_error_mm"])
+    if a12["verified_frac"] < ref12["verified_frac"] - 2.0 / 64:
+        problems.append(f"pair12 verified_frac {a12['verified_frac']}")
+    if a12["median_gt_error_mm"] is None or a12["median_gt_error_mm"] > err_cap12:
+        problems.append(f"pair12 median GT error {a12['median_gt_error_mm']} above {err_cap12}")
+    if a11["verified_frac"] < ref["verified_frac"] - slack:
+        problems.append(f"pair11 verified_frac {a11['verified_frac']}")
+    if a11["rank0_frac"] < ref["rank0_frac"] - slack:
+        problems.append(f"pair11 rank0_frac {a11['rank0_frac']}")
+    if not a11["median_gt_error_mm_by_batch"] or max(a11["median_gt_error_mm_by_batch"]) > err_cap:
+        problems.append(f"pair11 median GT error {a11['median_gt_error_mm_by_batch']} above {err_cap}")
+
+    # a second run skips on the markers; with the markers gone it resumes
+    # from the cached contexts and writes the same bytes
+    def result_files(out_dir):
+        return {f: open(os.path.join(out_dir, f), "rb").read()
+                for f in sorted(os.listdir(out_dir)) if "_results" in f}
+
+    first = result_files(p("out"))
+    report2, skip_s = run(p("out"))
+    if (report2["completed"], report2["failed"], report2["skipped"]) != (0, 1, 2):
+        problems.append(f"the second run did not skip on the markers: {report2}")
+    for name in ("pair11", "pair12"):
+        os.remove(p(f"out/{name}.done"))
+    stamp = os.path.getmtime(p("out/artifacts/pair11.npz"))
+    report3, resume_s = run(p("out"))
+    resumed_equal = result_files(p("out")) == first
+    if report3["completed"] != 2 or os.path.getmtime(p("out/artifacts/pair11.npz")) != stamp:
+        problems.append("the resumed run did not use the cached contexts")
+    if not resumed_equal or len(first) != 2 * 2 * len(queries):
+        problems.append("the resumed run's results are not byte-equal to the first run's")
+    batch_launches = dict(kernels.LAUNCHES)
+
+    # calibration on pair 11, from the context the batch cached
+    ctx = load_pair_context(p("out/artifacts/pair11.npz"))
+    dev = ctx.device
+    true11 = Affine3D(*(t.to(dev) for t in (true11.A, true11.t, true11.center)))
+
+    def plan_for(run_id: int, n_queries: int):
+        g = torch.Generator().manual_seed(seed * 1000 + 900 + run_id)
+        return draw_sampling_plan(g, n_queries, cfg, ctx.moving_features.capacity,
+                                  ctx.fixed_features.capacity, dev)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X, y = surrogate.collect_labeled_measurements(
+        ctx, cfg, true11, cal_queries, plan_for(0, len(cal_queries)))
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    n_pos, n_neg = int((y > 0).sum()), int((y == 0).sum())
+    if min(n_pos, n_neg) < 8:
+        raise AssertionError(f"batch_calibrate: {n_pos} aligned and {n_neg} misaligned "
+                             "measurements collected, want 8 of each")
+    Xs = scale_measurements(torch.from_numpy(X)).numpy()
+    write_svmlight(p("train.txt"), Xs, np.where(y > 0, 1.0, -1.0))
+
+    t0 = time.perf_counter()
+    _, _, smo_iterations = smo.smo_solve(
+        smo.rbf_kernel(Xs.astype(np.float64), 0.125), np.where(y > 0, 1.0, -1.0), 1.0)
+    models = {"smo": smo.train_c_svc(Xs, y)}
+    smo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    models["klr"] = fit_rbf_classifier(Xs, y)  # on the card
+    torch.cuda.synchronize()
+    klr_s = time.perf_counter() - t0
+
+    trained = {}
+    q_dev = torch.as_tensor(queries, device=dev)
+    for name, model in models.items():
+        probs = predict_probability(model.to(dev), torch.from_numpy(Xs).to(dev)).cpu().numpy()
+        accuracy = float(((probs > 0.5) == (y > 0)).mean())
+        with open(p(f"{name}.model"), "w") as f:
+            f.write(serialize_libsvm_model(model))
+        cli.main(["svm-predict", p("train.txt"), p(f"{name}.model"), p(f"{name}.pred"), "-b"])
+        from_file = np.loadtxt(p(f"{name}.pred"), skiprows=1)[:, 1]
+        file_diff = float(np.abs(from_file - probs).max())
+        out = register_locations_staged(ctx, q_dev, cfg, model, plan_for(1, len(queries)))
+        torch.cuda.synchronize()
+        trained[name] = {
+            "support_vectors": int(model.sv.shape[0]), "training_accuracy": accuracy,
+            "serialised_max_abs_probability_diff": file_diff,
+            **acceptance_stats(out, queries, true11),
+        }
+        if accuracy < 0.9:
+            problems.append(f"{name}: training accuracy {accuracy} below 0.9")
+        if file_diff > 1e-5:
+            problems.append(f"{name}: the serialised model's probabilities differ by {file_diff}")
+    launches = dict(kernels.LAUNCHES)
+    k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
+    total_bytes = tree_bytes(work)
     phase(
         "batch_calibrate", card=card, queries_per_pair=len(queries),
         calibration_queries=len(cal_queries),
@@ -1564,6 +1622,8 @@ def run_batch_calibrate(seed: int, card: str):
         resumed_timers=report3["timers"], resumed_byte_equal=resumed_equal,
         volume_reader=native_loader.reader_kind(), acceptance=acc,
         lrr_tpu_reference={k: ref[k] for k in ("verified_frac", "rank0_frac", "median_gt_error_mm")},
+        lrr_tpu_reference_pair12={k: ref12[k] for k in ("verified_frac", "rank0_frac",
+                                                        "median_gt_error_mm")},
         calibration={"collect_s": collect_s, "aligned": n_pos, "misaligned": n_neg,
                      "smo_iterations": int(smo_iterations), "smo_s": smo_s, "klr_s": klr_s,
                      "models": trained},
@@ -1575,7 +1635,10 @@ def run_batch_calibrate(seed: int, card: str):
     for name, n in batch_launches.items():
         if n <= 0:
             raise AssertionError(f"batch_calibrate: kernel {name} was never launched by run_batch")
-    return launches, k1_shapes, k2_shapes
+    batch = {"pairs": p("pairs.txt"),
+             "selected": {e["name"]: [loc["selected"] for loc in e["locations"]]
+                          for e in report["pairs"] if e["status"] == "ok"}}
+    return launches, k1_shapes, k2_shapes, batch
 
 
 # ---------------------------------------------------------------------------
@@ -1644,7 +1707,7 @@ def run_estimate(seed: int, card: str, bench_sets, ref):
     from lrr_tpu_torch.pipeline.intensity import register_intensity
 
     (mov_fs, fix_fs, vol_shape, vol_origin, vol_spacing), true_b = bench_sets
-    ctx_r, moving_r, fixed_r, true_r, _ = ref
+    ctx_r, moving_r, fixed_r, true_r, _, _ = ref
     dev = mov_fs.xyz.device
     mov_xyz, fix_xyz = mov_fs.xyz[mov_fs.mask], fix_fs.xyz[fix_fs.mask]
     problems = []
@@ -1773,14 +1836,321 @@ def run_estimate(seed: int, card: str, bench_sets, ref):
         raise AssertionError("estimate: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# phase 13: two ranks on the card (lrr_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT_S = 420
+
+
+def ties_only(got: torch.Tensor, want: torch.Tensor, pts: torch.Tensor, origin, spacing) -> int:
+    """Two index maps over the same features: equal but at voxels whose two
+    answers' squared distances (float64 of the fp32 inputs) lie within 4
+    fp32 ulp of each other (a tie the rounding of a voxel coordinate can
+    flip).  Returns the number of differing voxels; raises at a non-tie."""
+    diff = torch.nonzero(got != want).cpu().numpy()
+    p = pts.double().cpu().numpy()
+    o, sp = origin.double().cpu().numpy(), spacing.double().cpu().numpy()
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    for z, y, x in diff:
+        q = o + np.array([x, y, z]) * sp
+        da, db = ((q - p[g[z, y, x]]) ** 2).sum(), ((q - p[w[z, y, x]]) ** 2).sum()
+        if abs(da - db) > 4 * np.spacing(np.float32(max(da, db))):
+            raise AssertionError(f"parallel: voxel {(z, y, x)} differs and is no tie ({da}, {db})")
+    return len(diff)
+
+
+def parallel_rank(spec_path: str) -> None:
+    """One rank of phase 13 (run as `chip_smoke.py --parallel-rank SPEC` with
+    the LRR_* environment): stage 1 z-split at the reference constants,
+    phase 7's queries served with the lanes split, one candidate's ICP with
+    the matches split, then `cli batch` over phase 10's pairs; its record
+    goes to <out>/rank<r>.json."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from lrr_tpu_torch import cli, config
+    from lrr_tpu_torch.estimation.icp import register_candidate
+    from lrr_tpu_torch.estimation.measurements import backward_covariance
+    from lrr_tpu_torch.ops import kernels, native, voronoi
+    from lrr_tpu_torch.parallel import distributed, make_mesh
+    from lrr_tpu_torch.pipeline import registration
+    from lrr_tpu_torch.sampling import draw_sampling_plan
+    from lrr_tpu_torch.utils.synthetic import make_pair
+    from lrr_tpu_torch.verify.svm import load_default_verifier
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    # the libraries phase 2 built: ranks side by side must not build into build/
+    missing = [p for p in map(native.library_path, native.sources()) if not os.path.exists(p)]
+    if missing:
+        raise RuntimeError(f"parallel: kernel libraries not built: {missing}")
+    t0 = time.perf_counter()
+    if not distributed.maybe_initialize_distributed():
+        raise RuntimeError("parallel: the LRR_* environment did not start a process group")
+    rank, world = distributed.process_info()
+    rec = {"rank": rank, "world": world, "backend": distributed.backend(),
+           "device": torch.cuda.current_device(), "init_s": time.perf_counter() - t0}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    problems = []
+    seconds = {}
+    launches = {}
+    k1_shapes: dict[str, int] = {}
+    k2_shapes: dict[str, int] = {}
+
+    def part(name: str, fn):
+        """Run one part with the counts set to 0 just before it and read just
+        after; seconds end with a synchronise."""
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        launches[name] = dict(kernels.LAUNCHES)
+        for shape, n in kernels.K1_SHAPES.items():
+            key = "x".join(map(str, shape))
+            k1_shapes[key] = k1_shapes.get(key, 0) + n
+        for shape, n in kernels.K2_SHAPES.items():
+            key = "x".join(map(str, shape))
+            k2_shapes[key] = k2_shapes.get(key, 0) + n
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+
+    # stage 1 at the reference constants, z-split over the ranks
+    cfg = reference_config()
+    fixed, moving, true = make_pair((400, 350, 350), rotation_deg=6.0,
+                                    translation=(3.0, -2.0, 1.5), seed=11, noise=0.5, dense=True)
+    sp_mesh = distributed.global_mesh("sp")
+    ctx = part("prepare_pair", lambda: registration.prepare_pair(
+        moving, fixed, cfg, mesh=sp_mesh, axis_name="sp"))
+    digests = context_digests(ctx)
+    want = spec["digests"]
+    rec["features_equal_phase6"] = all(digests[k] == want[k] for k in want if "features" in k)
+    if not rec["features_equal_phase6"]:
+        problems.append("features differ from phase 6's")
+    rec["maps"] = {}
+    for side, fs in (("moving_vor", ctx.moving_features), ("fixed_vor", ctx.fixed_features)):
+        if digests[side] == want[side]:
+            rec["maps"][side] = "sha256 equal"
+            continue
+        vor = getattr(ctx, side)
+        one = voronoi.build_feature_voronoi(fs.xyz, fs.mask)[0]  # phase 6's builder, one process
+        rec["maps"][side] = f"{ties_only(vor.index_vol, one, fs.xyz, vor.origin, vor.spacing)} ties"
+    rec["z_split"] = {"volume": list(moving.data.shape),
+                      "maps": [list(ctx.moving_vor.index_vol.shape),
+                               list(ctx.fixed_vor.index_vol.shape)]}
+
+    # phase 7's 16 queries and plan, the lanes of every dispatch split
+    svm = load_default_verifier()
+    ctx_r = registration.segment_pair(moving, fixed, ctx)
+    queries = reference_queries(moving)
+    del fixed, moving
+    q = torch.as_tensor(queries, device=ctx.device)
+    served = spec["served"]
+    plan = draw_sampling_plan(torch.Generator().manual_seed(served["plan_seed"]), len(queries),
+                              cfg, ctx.moving_features.capacity, ctx.fixed_features.capacity,
+                              ctx.device)
+    waves = []
+    wave_fn = registration._wave_fn
+
+    def counted(*args):
+        waves.append(int(args[-2].numel()))
+        return wave_fn(*args)
+
+    registration._wave_fn = counted
+    try:
+        out = part("serve", lambda: registration.register_locations_staged(
+            ctx_r, q, cfg, svm, plan, mesh=distributed.global_mesh("dp")))
+    finally:
+        registration._wave_fn = wave_fn
+    sel = out.selected.cpu().numpy()
+    both = out.refined.cpu().numpy() & np.asarray(served["refined"])
+    rec["serve"] = {
+        **acceptance_stats(out, queries, true), "verified": int((sel >= 0).sum()),
+        "lanes_per_rank_by_wave": waves,
+        "selected_equal_phase7": sel.tolist() == served["selected"],
+        "verified_equal_where_both_refined": bool(
+            (out.verified.cpu().numpy()[both] == np.asarray(served["verified"])[both]).all()),
+        "refined": int(out.refined.sum()), "refined_phase7": int(np.sum(served["refined"])),
+    }
+    diffs = []
+    for i, tr in served["selected_trans"].items():
+        c = int(sel[int(i)])
+        if c >= 0:
+            mine = out.trans[int(i), c]
+            diffs.append(max(float((getattr(mine, k).cpu() - torch.tensor(tr[k])).abs().max())
+                             for k in ("A", "t", "center")))
+    rec["serve"]["max_selected_transform_diff"] = max(diffs) if diffs else None
+    if not rec["serve"]["selected_equal_phase7"]:
+        problems.append(f"selected {sel.tolist()} differ from phase 7's {served['selected']}")
+    if not rec["serve"]["verified_equal_where_both_refined"]:
+        problems.append("verified differs from phase 7's on candidates both runs refined")
+    if rec["serve"]["verified"] < 12:
+        problems.append(f"{rec['serve']['verified']} of 16 verified")
+    err = rec["serve"]["median_gt_error_mm"]
+    if err is None or err >= 1.0:
+        problems.append(f"median GT error {err} mm")
+
+    # one candidate's ICP with its matches split over the ranks (mp): query
+    # 0's best-ranked candidate, sampling from every feature of each volume
+    # (not its ROI's 100-200), so each 8,000-position window holds 8,000
+    # matches, 4,000 a rank
+    mp_mesh = make_mesh()
+    _, inits, _, _, _, rank_q, _, _ = registration._pass1_fn(ctx_r, q[:1], cfg, plan.query(0))
+    cand = int(rank_q[0, 0])
+    init, _, _, draws = registration._one_candidate(ctx_r, q[0], cfg, plan.query(0), cand, inits)
+    m_roi = dataclasses.replace(ctx_r.moving_features, mask=ctx_r.moving_features.mask[None])
+    f_roi = dataclasses.replace(ctx_r.fixed_features, mask=ctx_r.fixed_features.mask[None])
+    kw = dict(moving_targets=ctx_r.moving_features, fixed_targets=ctx_r.fixed_features,
+              fixed_grid=ctx_r.fixed_grid, moving_grid=ctx_r.moving_grid)
+
+    def icp(mesh):
+        res = register_candidate(m_roi, f_roi, ctx_r.fixed_vor, ctx_r.moving_vor, init,
+                                 cfg.estimation, draws, mesh=mesh, **kw)
+        cov = backward_covariance(res, m_roi, f_roi, ctx_r.fixed_vor, ctx_r.moving_vor,
+                                  cfg.estimation, plan.query(0).select(
+                                      torch.zeros(1, dtype=torch.long, device=ctx.device),
+                                      torch.full((1,), cand, device=ctx.device)).covariance(),
+                                  mesh=mesh, **kw)
+        return res, cov
+
+    res_mp, cov_mp = part("icp_mp", lambda: icp(mp_mesh))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res_one, cov_one = icp(None)
+    torch.cuda.synchronize()
+    seconds["icp_one_process"] = time.perf_counter() - t
+    rec["icp_mp"] = {
+        "candidate": cand, "max_matches": cfg.estimation.max_matches,
+        "source_features": [int(m_roi.mask.sum()), int(f_roi.mask.sum())],
+        "iterations": [int(res_mp.iterations[0]), int(res_one.iterations[0])],
+        "number_matches": [int(res_mp.number_matches[0]), int(res_one.number_matches[0])],
+        "max_abs_diff": {"A": float((res_mp.trans.A - res_one.trans.A).abs().max()),
+                         "t": float((res_mp.trans.t - res_one.trans.t).abs().max()),
+                         "weighted_error": float((res_mp.weighted_error
+                                                  - res_one.weighted_error).abs().max())},
+        "covariance_rel_diff": float((cov_mp - cov_one).abs().max() / cov_one.abs().max()),
+    }
+    d = rec["icp_mp"]["max_abs_diff"]
+    if d["A"] > 1e-3 or d["t"] > 1e-2 or rec["icp_mp"]["iterations"][0] != rec["icp_mp"]["iterations"][1]:
+        problems.append(f"the match-parallel ICP differs from the one-process run: {rec['icp_mp']}")
+    del ctx, ctx_r, out
+
+    # `cli batch` over phase 10's pairs file, the bench config in place of
+    # PipelineConfig() (the command has no config flag)
+    bench_cfg = load_bench_meta()[1]
+    config.PipelineConfig = lambda: bench_cfg
+    out_dir = os.path.join(spec["out"], "batch")
+    part("batch", lambda: cli.main(["batch", spec["batch"]["pairs"], "--out", out_dir,
+                                    "--seed", str(spec["seed"])]))
+    dist.barrier()  # rank 0 has written the report
+    with open(os.path.join(out_dir, "batch_report.json")) as f:
+        report = json.load(f)
+    rec["batch"] = {
+        "report": {k: report[k] for k in ("completed", "failed", "skipped")},
+        "selected": {e["name"]: [loc["selected"] for loc in e["locations"]]
+                     for e in report["pairs"] if e["status"] == "ok"},
+        "writes": rank == 0,
+    }
+    rec["batch"]["pair11_equal_phase10"] = (
+        rec["batch"]["selected"].get("pair11") == spec["batch"]["selected"]["pair11"])
+    if not rec["batch"]["pair11_equal_phase10"]:
+        problems.append(f"batch pair11 {rec['batch']['selected'].get('pair11')} differs from "
+                        f"phase 10's {spec['batch']['selected']['pair11']}")
+
+    rec.update(seconds=seconds, launches=launches, k1_shapes=k1_shapes, k2_shapes=k2_shapes,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, problems=problems)
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_parallel(seed: int, card: str, digests: dict, served: dict, batch: dict, work: str):
+    """Phase 13: two ranks on the one card, as subprocesses joined through
+    LRR_COORDINATOR (`parallel_rank`); the ranks share the card, so the
+    backend is gloo and no figure here is a scaling figure."""
+    import socket
+
+    spec = {"seed": seed, "digests": digests, "served": served, "batch": batch,
+            "out": os.path.join(work, "parallel")}
+    os.makedirs(spec["out"])
+    spec_path = os.path.join(work, "parallel_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.empty_cache()
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(PARALLEL_RANKS):
+        env = dict(os.environ, LRR_COORDINATOR=f"127.0.0.1:{port}",
+                   LRR_NUM_PROCESSES=str(PARALLEL_RANKS), LRR_PROCESS_ID=str(r))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank", spec_path],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            left = PARALLEL_TIMEOUT_S - (time.perf_counter() - t0)
+            outs.append(p.communicate(timeout=max(1.0, left))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall_s = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"parallel: rank {r} exited {p.returncode}:\n{out[-6000:]}")
+    ranks = []
+    for r in range(PARALLEL_RANKS):
+        with open(os.path.join(spec["out"], f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    problems = [f"rank {rec['rank']}: {x}" for rec in ranks for x in rec["problems"]]
+    for rec in ranks:
+        for name in ("normal_equations", "knn"):
+            if sum(part[name] for part in rec["launches"].values()) <= 0:
+                problems.append(f"rank {rec['rank']}: kernel {name} never launched")
+    if ranks[0]["serve"]["selected_equal_phase7"] != ranks[1]["serve"]["selected_equal_phase7"] \
+            or ranks[0]["batch"]["selected"] != ranks[1]["batch"]["selected"]:
+        problems.append("the ranks disagree")
+    phase("parallel", card=card, ranks=PARALLEL_RANKS, wall_s=wall_s,
+          backend=ranks[0]["backend"], per_rank=ranks, problems=problems)
+    if problems:
+        raise AssertionError("parallel: " + "; ".join(problems))
+
+    def shapes(key):
+        merged: dict[tuple, dict[str, int]] = {}
+        for rec in ranks:
+            for k, n in rec[key].items():
+                merged.setdefault(tuple(int(v) for v in k.split("x")), {})[
+                    f"parallel_rank{rec['rank']}"] = n
+        return merged
+
+    launches = {name: sum(part[name] for rec in ranks for part in rec["launches"].values())
+                for name in ("normal_equations", "knn")}
+    return launches, shapes("k1_shapes"), shapes("k2_shapes")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parallel-rank", help=argparse.SUPPRESS)  # phase 13's ranks
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this smoke test runs only on the GPU")
     from lrr_tpu_torch.ops import native  # fails here, before any output, without the repo
+
+    if args.parallel_rank:
+        return parallel_rank(args.parallel_rank)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1806,21 +2176,28 @@ def main() -> None:
     launches4, shapes4 = run_slice(args.seed, card)
     (launches5, shapes5), bench = run_stage1_bench(args.seed, card)
     ref = run_stage1_reference(card)
-    launches7, shapes7 = run_serve_reference(args.seed, card, ref)
+    launches7, shapes7, served7 = run_serve_reference(args.seed, card, ref)
     launches8, shapes8, entries8 = run_regions_bench(args.seed, card, bench)
     bench_sets = estimate_inputs(bench)
     del bench
     launches_cli, shapes_cli, k2_cli = run_cli_reference(args.seed, card, ref)
     run_estimate(args.seed, card, bench_sets, ref)
+    digests6 = ref[-1]
     del ref, bench_sets
-    launches_batch, shapes_batch, k2_batch = run_batch_calibrate(args.seed, card)
+    work = tempfile.mkdtemp(prefix="lrr_batch_parallel_")
+    try:
+        launches_batch, shapes_batch, k2_batch, batch10 = run_batch_calibrate(args.seed, card, work)
+        launches13, shapes13, k2_13 = run_parallel(args.seed, card, digests6, served7, batch10, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     by_path = {"slice": launches4, "stage1_bench": launches5,
                "stage1_reference+serve_reference": launches7, "cli_reference": launches_cli,
                "regions_bench": launches8, "batch_calibrate": launches_batch,
+               "parallel": launches13,
                "regions_bench_by_entry": {
                    name: {k: e[k] for k in launches4} for name, e in entries8.items()}}
     launches = {name: sum(path[name] for path in (launches4, launches5, launches7, launches_cli,
-                                                  launches8, launches_batch))
+                                                  launches8, launches_batch, launches13))
                 for name in launches4}
 
     # K1 against its plain version at every shape a path gave it (as row
@@ -1832,6 +2209,8 @@ def main() -> None:
                          ("regions_bench", shapes8), ("batch_calibrate", shapes_batch)):
         for shape, n in shapes.items():
             path_shapes.setdefault(shape, {})[path] = n
+    for shape, by_rank in shapes13.items():  # per rank: "parallel_rank0", ...
+        path_shapes.setdefault(shape, {}).update(by_rank)
     added = {}
     for shape in sorted(path_shapes):
         if k1_key(*shape, True) not in k1:
@@ -1841,6 +2220,8 @@ def main() -> None:
     for path, shapes in (("cli_reference", k2_cli), ("batch_calibrate", k2_batch)):
         for shape, n in shapes.items():
             k2_path_shapes.setdefault(shape, {})[path] = n
+    for shape, by_rank in k2_13.items():
+        k2_path_shapes.setdefault(shape, {}).update(by_rank)
     k2_added = {}
     for shape in sorted(k2_path_shapes):
         if k2_key(*shape) not in k2:

@@ -796,6 +796,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    # several processes (parallel.distributed): the process group comes up
+    # first; a no-op unless LRR_COORDINATOR / LRR_DISTRIBUTED is set
+    from lrr_tpu_torch.parallel.distributed import maybe_initialize_distributed
+
+    maybe_initialize_distributed()
     args = build_parser().parse_args(argv)
     args.fn(args)
 

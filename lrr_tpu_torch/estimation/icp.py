@@ -25,6 +25,14 @@ index, then that feature's packed row.
 `model="rigid"` swaps the 12-dof solve for a 6-dof small-angle increment on
 the mapped points (cdcl_estimation.txx:111-165); its 6x6 system is plain
 PyTorch and does not go through K1.
+
+With a mesh (`register_candidate(mesh=, match_axis="mp")`) the match axis
+is split over the `match_axis` ranks (`_MatchAxis`): a rank samples,
+matches and weighs its block of each window's positions and runs K1 on it;
+the statistics over all of a lane's matches see every match (the MAD and
+MUSE scales gather the per-match values, means and sums add the ranks'
+partial sums), and an all-reduce adds the normal equations.  Every rank then
+holds the same carry and takes the same host decisions.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from lrr_tpu_torch.models.affine import (
 from lrr_tpu_torch.models.rigid import orthogonalize, skew
 from lrr_tpu_torch.ops import kernels, robust
 from lrr_tpu_torch.ops.voronoi import lookup, voxel_ids
+from lrr_tpu_torch.parallel.distributed import all_gather, all_reduce_sum
 from lrr_tpu_torch.sampling import ICPDraws
 from lrr_tpu_torch.types import SHEET, TUBE, FeatureSet
 
@@ -106,6 +115,47 @@ def _where(active: torch.Tensor, new, old):
             for f in dataclasses.fields(new)
         }
     )
+
+
+class _MatchAxis:
+    """The match axis of a refinement: whole (no mesh), or split over the
+    ranks of `axis` of `mesh`, each holding one contiguous block of every
+    window's positions (the window padded to a multiple of the rank count;
+    padded positions are masked out).  With one rank every method is the
+    plain operation, bit for bit."""
+
+    def __init__(self, mesh=None, axis: str = "mp"):
+        self.mesh, self.axis = mesh, axis
+        self.n = 1 if mesh is None else mesh.axis_size(axis)
+        self.i = 0 if mesh is None else mesh.axis_index(axis)
+
+    def positions(self, cap: int, device) -> torch.Tensor:
+        """This rank's window positions of a length-`cap` window."""
+        m = -(-cap // self.n)
+        return torch.arange(self.i * m, (self.i + 1) * m, device=device)
+
+    def reduce(self, *xs: torch.Tensor) -> list[torch.Tensor]:
+        """Each partial sum x added over the ranks, in one all-reduce."""
+        if self.n == 1:
+            return list(xs)
+        flat = all_reduce_sum(self.mesh, torch.cat([x.reshape(-1) for x in xs]), self.axis)
+        return [t.reshape(x.shape) for t, x in zip(torch.split(flat, [x.numel() for x in xs]), xs)]
+
+    def sums(self, *xs: torch.Tensor) -> list[torch.Tensor]:
+        """Each x summed over its last (match) dim and over the ranks."""
+        return self.reduce(*[x.sum(-1) for x in xs])
+
+    def gather(self, x: torch.Tensor, mask: torch.Tensor):
+        """(x, mask) [L, m] of every rank as one window [L, n * m], for the
+        order statistics: its padded positions are masked, so they sort
+        after every match and change no scale."""
+        if self.n == 1:
+            return x, mask
+        both = all_gather(self.mesh, torch.stack([x, mask.to(x.dtype)]), self.axis, dim=-1)
+        return both[0], both[1] > 0.5
+
+
+_WHOLE = _MatchAxis()
 
 
 def _mad_scale_dof(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -219,16 +269,14 @@ def _pack_source(scores: torch.Tensor, rows: torch.Tensor, lane_mask: torch.Tens
     return _PackedSource(rows, lane_mask, order, valid)
 
 
-def _window(order, valid, offset, cap: int) -> torch.Tensor:
-    """Indices of the length-`cap` cyclic window of each lane's permutation
-    starting at `offset` (taken modulo the lane's valid count): the JAX
-    package's dynamic_slice of the cyclically extended table."""
+def _window(order, valid, offset, pos: torch.Tensor) -> torch.Tensor:
+    """Indices at window positions `pos` [m] of each lane's cyclic window
+    of its permutation starting at `offset` (taken modulo the lane's valid
+    count): the JAX package's dynamic_slice of the cyclically extended
+    table, at positions arange(cap) for the whole window."""
     v = torch.clamp(valid, min=1)
-    pos = torch.remainder(
-        (offset % v)[:, None] + torch.arange(cap, device=order.device)[None, :],
-        v[:, None],
-    )
-    return order.gather(1, pos)
+    at = torch.remainder((offset % v)[:, None] + pos[None, :], v[:, None])
+    return order.gather(1, at)
 
 
 @dataclasses.dataclass
@@ -274,25 +322,25 @@ def _sample_matches_packed(
     offset: torch.Tensor,  # [L] raw offsets
     *,
     dst_rows: torch.Tensor | None = None,  # [N, 8] target rows, for grid None
+    mx: _MatchAxis = _WHOLE,
 ) -> PackedMatches:
     """A window of `cap` source rows per lane, mapped through `trans` and
     matched by one row gather from the baked grid (empty voxels carry tag 0
     and drop out through the mask).  Without a grid the voxel's feature
     index is read from the map and the row taken from `dst_rows`; an empty
     voxel gets the zero row the grid would hold, so both give the same
-    rows."""
+    rows.  With `mx` split over ranks, this rank's block of the window."""
     cap = min(cap, src.order.shape[1])
-    idx = _window(src.order, src.valid_count, offset, cap)
-    rows = src.rows[idx]  # [L, cap, 8]
+    pos = mx.positions(cap, src.order.device)
+    idx = _window(src.order, src.valid_count, offset, pos)
+    rows = src.rows[idx]  # [L, m, 8]
     tag = torch.where(
         src.lane_mask.gather(1, idx), rows[..., 7], torch.zeros_like(rows[..., 7])
     )
     win = rows.permute(0, 2, 1)
     fxyz = win[:, 0:3]
-    rank_ok = torch.arange(cap, device=idx.device)[None, :] < torch.minimum(
-        number, src.valid_count
-    )[:, None]
-    sel = rank_ok & (tag > 0.5)
+    limit = torch.clamp(torch.minimum(number, src.valid_count), max=cap)
+    sel = (pos[None, :] < limit[:, None]) & (tag > 0.5)
 
     mapped = _apply_packed(trans, fxyz)
     ids = voxel_ids(tuple(vor.index_vol.shape), vor.origin, vor.spacing,
@@ -303,7 +351,7 @@ def _sample_matches_packed(
         nn = vor.index_vol.reshape(-1)[ids]
         to_rows = dst_rows[torch.clamp(nn, min=0).long()]
         to_rows = torch.where((nn >= 0)[..., None], to_rows, torch.zeros_like(to_rows))
-    to_row = to_rows.permute(0, 2, 1)  # [L, 8, cap]
+    to_row = to_rows.permute(0, 2, 1)  # [L, 8, m]
     ok = sel & (to_row[:, 7] > 0.5)
     return PackedMatches(
         fxyz=fxyz, fstr=win[:, 3], txyz=to_row[:, 0:3], tstr=to_row[:, 3],
@@ -326,51 +374,55 @@ def _replace(pm: PackedMatches, weight: torch.Tensor) -> PackedMatches:
 
 
 def _scale_and_bt_weights_packed(
-    trans: Affine3D, pm: PackedMatches, use_muse: bool, cfg: EstimationConfig
+    trans: Affine3D, pm: PackedMatches, use_muse: bool, cfg: EstimationConfig,
+    mx: _MatchAxis = _WHOLE,
 ) -> PackedMatches:
     r2 = _residual2_packed(trans, pm)
     msk = pm.mask
     zero = torch.zeros_like(r2)
     if use_muse:
         scale = robust.muse_scale(
-            torch.sqrt(r2), msk, cfg.muse_min_frac, cfg.muse_max_frac
+            *mx.gather(torch.sqrt(r2), msk), cfg.muse_min_frac, cfg.muse_max_frac
         )
     else:
-        scale = torch.sqrt(
-            torch.where(msk, r2, zero).sum(-1) / torch.clamp(msk.sum(-1), min=1)
-        )
+        r2_sum, count = mx.sums(torch.where(msk, r2, zero), msk.to(r2.dtype))
+        scale = torch.sqrt(r2_sum / torch.clamp(count, min=1))
     scale = torch.clamp(scale, min=SCALE_FLOOR)
     s2 = (scale * scale)[:, None]
     w = robust.weight_bt(r2 / s2) / s2
     return _replace(pm, torch.where(msk, w, zero))
 
 
-def _weight_by_strength_packed(pm: PackedMatches) -> PackedMatches:
+def _weight_by_strength_packed(pm: PackedMatches, mx: _MatchAxis = _WHOLE) -> PackedMatches:
     gw = torch.clamp(pm.fstr * pm.tstr, max=90000.0)
     nz = pm.mask & (pm.weight != 0.0)
     w = torch.where(nz, pm.weight * gw, pm.weight)
-    scale = _mad_scale_dof(gw, nz)
+    scale = _mad_scale_dof(*mx.gather(gw, nz))
     return _replace(pm, w / torch.clamp(scale, min=1e-30)[:, None])
 
 
-def _weight_spatially_packed(to_norm, pm: PackedMatches, falloff: float):
+def _weight_spatially_packed(to_norm, pm: PackedMatches, falloff: float,
+                             mx: _MatchAxis = _WHOLE):
     d2 = to_norm[:, 0] ** 2 + to_norm[:, 1] ** 2 + to_norm[:, 2] ** 2
     sw = 1.0 / (1.0 + falloff * d2)
-    scale = _mad_scale_dof(sw, pm.mask)
+    scale = _mad_scale_dof(*mx.gather(sw, pm.mask))
     return _replace(pm, pm.weight * sw / torch.clamp(scale, min=1e-30)[:, None])
 
 
-def _weighted_error_packed(trans: Affine3D, pm: PackedMatches) -> torch.Tensor:
+def _weighted_error_packed(trans: Affine3D, pm: PackedMatches,
+                           mx: _MatchAxis = _WHOLE) -> torch.Tensor:
     r2 = _residual2_packed(trans, pm)
     w = torch.where(pm.mask, pm.weight, torch.zeros_like(pm.weight))
-    return (torch.sqrt(r2) * w).sum(-1) / torch.clamp(w.sum(-1), min=1e-30)
+    err_sum, w_sum = mx.sums(torch.sqrt(r2) * w, w)
+    return err_sum / torch.clamp(w_sum, min=1e-30)
 
 
-def _feature_rms_packed(trans: Affine3D, pm: PackedMatches) -> torch.Tensor:
+def _feature_rms_packed(trans: Affine3D, pm: PackedMatches,
+                        mx: _MatchAxis = _WHOLE) -> torch.Tensor:
     """Unweighted RMS sqrt(mean e^T P e) over the current matches."""
     r2 = _residual2_packed(trans, pm)
-    n = torch.clamp(pm.mask.sum(-1), min=1)
-    return torch.sqrt(torch.where(pm.mask, r2, torch.zeros_like(r2)).sum(-1) / n)
+    r2_sum, count = mx.sums(torch.where(pm.mask, r2, torch.zeros_like(r2)), pm.mask.to(r2.dtype))
+    return torch.sqrt(r2_sum / torch.clamp(count, min=1))
 
 
 @dataclasses.dataclass
@@ -394,16 +446,16 @@ def _sample_stats_packed(
     trans: Affine3D,
     number: torch.Tensor,  # [L]
     cap: int,
+    mx: _MatchAxis = _WHOLE,
 ) -> StatsSample:
     """A random cyclic window of the permutation, Voronoi NN, one wide row
-    gather per side."""
+    gather per side (this rank's block of the window with `mx` split)."""
     cap = min(cap, order.shape[1])
-    idx = _window(order, valid, offset, cap)
+    pos = mx.positions(cap, order.device)
+    idx = _window(order, valid, offset, pos)
     src = wide_src[idx].permute(0, 2, 1)
-    sel = (
-        torch.arange(cap, device=idx.device)[None, :]
-        < torch.minimum(number, valid)[:, None]
-    ) & (src[:, 15] > 0.5)
+    limit = torch.clamp(torch.minimum(number, valid), max=cap)
+    sel = (pos[None, :] < limit[:, None]) & (src[:, 15] > 0.5)
     mapped = _apply_packed(trans, src[:, 0:3])
     nn = lookup(vor.index_vol, vor.origin, vor.spacing, mapped.transpose(1, 2))
     ok = sel & (nn >= 0)
@@ -437,7 +489,8 @@ def _cross_rows(a, b):
     )
 
 
-def _angle_stats_packed(trans: Affine3D, s: StatsSample, weight: torch.Tensor):
+def _angle_stats_packed(trans: Affine3D, s: StatsSample, weight: torch.Tensor,
+                        mx: _MatchAxis = _WHOLE):
     """Weighted mean sheet-normal / tube-tangent angle disagreement, [L]
     each.  For an affine map the mapped direction is A d."""
     A = trans.A
@@ -458,7 +511,8 @@ def _angle_stats_packed(trans: Affine3D, s: StatsSample, weight: torch.Tensor):
         ang = torch.acos(c)
         ang = torch.where(ang > math.pi / 2, math.pi - ang, ang)
         w = torch.where(pair_mask & s.mask, weight, torch.zeros_like(weight))
-        return (w * ang).sum(-1) / torch.clamp(w.sum(-1), min=1e-30)
+        ang_sum, w_sum = mx.sums(w * ang, w)
+        return ang_sum / torch.clamp(w_sum, min=1e-30)
 
     f_shape = s.src[:, 8].to(torch.int32)
     t_shape = s.dst[:, 8].to(torch.int32)
@@ -471,32 +525,34 @@ def _angle_stats_packed(trans: Affine3D, s: StatsSample, weight: torch.Tensor):
     return sheet, tube
 
 
-def _masked_mean_rows(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean_rows(x: torch.Tensor, mask: torch.Tensor,
+                      mx: _MatchAxis = _WHOLE) -> torch.Tensor:
     """Mean of [L, C, M] over valid lanes -> [L, C]."""
-    n = torch.clamp(mask.sum(-1), min=1)
-    return torch.where(mask[:, None, :], x, torch.zeros_like(x)).sum(-1) / n[:, None]
+    total, n = mx.sums(torch.where(mask[:, None, :], x, torch.zeros_like(x)), mask.to(x.dtype))
+    return total / torch.clamp(n, min=1)[:, None]
 
 
-def _weighted_matches_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationConfig):
+def _weighted_matches_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationConfig,
+                             mx: _MatchAxis = _WHOLE):
     """The shared robust-weighting pipeline of estimate_LS (symmetric
     .txx:698-728).  Returns the weighted match sets and the normalisation
     frame (cm, cf [L, 3], rm, rf [L])."""
-    fwd = _scale_and_bt_weights_packed(trans, fwd, use_muse, cfg)
-    bwd = _scale_and_bt_weights_packed(trans.inverse(), bwd, use_muse, cfg)
+    fwd = _scale_and_bt_weights_packed(trans, fwd, use_muse, cfg, mx)
+    bwd = _scale_and_bt_weights_packed(trans.inverse(), bwd, use_muse, cfg, mx)
 
-    cm = _masked_mean_rows(fwd.fxyz, fwd.mask)
-    cf = _masked_mean_rows(fwd.txyz, fwd.mask)
+    cm = _masked_mean_rows(fwd.fxyz, fwd.mask, mx)
+    cf = _masked_mean_rows(fwd.txyz, fwd.mask, mx)
     dm = fwd.fxyz - cm[:, :, None]
     df = fwd.txyz - cf[:, :, None]
     rm = torch.clamp(
         _masked_mean_rows(
-            torch.sqrt(dm[:, 0] ** 2 + dm[:, 1] ** 2 + dm[:, 2] ** 2)[:, None], fwd.mask
+            torch.sqrt(dm[:, 0] ** 2 + dm[:, 1] ** 2 + dm[:, 2] ** 2)[:, None], fwd.mask, mx
         )[:, 0],
         min=1e-6,
     )
     rf = torch.clamp(
         _masked_mean_rows(
-            torch.sqrt(df[:, 0] ** 2 + df[:, 1] ** 2 + df[:, 2] ** 2)[:, None], fwd.mask
+            torch.sqrt(df[:, 0] ** 2 + df[:, 1] ** 2 + df[:, 2] ** 2)[:, None], fwd.mask, mx
         )[:, 0],
         min=1e-6,
     )
@@ -507,10 +563,10 @@ def _weighted_matches_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationCon
     def norm_f(x):
         return (x - cf[:, :, None]) / rf[:, None, None]
 
-    fwd = _weight_by_strength_packed(fwd)
-    bwd = _weight_by_strength_packed(bwd)
-    fwd = _weight_spatially_packed(norm_f(fwd.txyz), fwd, cfg.spatial_falloff)
-    bwd = _weight_spatially_packed(norm_m(bwd.txyz), bwd, cfg.spatial_falloff)
+    fwd = _weight_by_strength_packed(fwd, mx)
+    bwd = _weight_by_strength_packed(bwd, mx)
+    fwd = _weight_spatially_packed(norm_f(fwd.txyz), fwd, cfg.spatial_falloff, mx)
+    bwd = _weight_spatially_packed(norm_m(bwd.txyz), bwd, cfg.spatial_falloff, mx)
 
     zero = torch.zeros_like(fwd.weight)
     w_f = torch.where(fwd.weight >= WEIGHT_FLOOR, fwd.weight, zero)
@@ -518,19 +574,21 @@ def _weighted_matches_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationCon
     return _replace(fwd, w_f), _replace(bwd, w_b), cm, cf, rm, rf
 
 
-def _estimate_ls_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationConfig):
+def _estimate_ls_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationConfig,
+                        mx: _MatchAxis = _WHOLE):
     """Component-major estimate_LS (symmetric .txx:698-918).  Both
     directions constrain the FORWARD parameters: a backward match (fixed p
     -> moving q) contributes forward(q) ~ p under p's projector.  K1 takes
     the weighted match sets as they are (un-normalised, each direction with
-    its own match count) with the frame, and returns the summed system."""
-    fwd, bwd, cm, cf, rm, rf = _weighted_matches_packed(trans, fwd, bwd, use_muse, cfg)
+    its own match count) with the frame, and returns the summed system; with
+    `mx` split, of this rank's block, and an all-reduce adds the blocks'."""
+    fwd, bwd, cm, cf, rm, rf = _weighted_matches_packed(trans, fwd, bwd, use_muse, cfg, mx)
     trans_n = trans.normalize(rm, rf, cm, cf)
-    AtA, Atb = kernels.normal_equations_sym(
+    AtA, Atb = mx.reduce(*kernels.normal_equations_sym(
         (fwd.fxyz, fwd.txyz, fwd.tdir, fwd.ttag, fwd.weight),
         (bwd.txyz, bwd.fxyz, bwd.fdir, bwd.ftag, bwd.weight),
         cm, cf, rm, rf, trans_n.center,
-    )
+    ))
 
     cov_n = pinv_hermitian(AtA)
     theta = (cov_n * Atb[:, None, :]).sum(-1)
@@ -575,28 +633,31 @@ def _normal_equations_rigid_packed(
     return AtA, Atb
 
 
-def _estimate_ls_rigid_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationConfig):
+def _estimate_ls_rigid_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationConfig,
+                              mx: _MatchAxis = _WHOLE):
     """Rigid (6-dof) twin of `_estimate_ls_packed`: the same robust
     weighting, then one small-angle increment on the mapped points,
     orthogonalised and recomposed onto the current transform
     (cdcl_estimation.txx:111-165, cdcl_trans_rigid3d.h:103-104).  Both
     directions constrain the same forward increment.  The 6x6 system is
     plain PyTorch: K1 computes the 12x12 affine one only."""
-    fwd, bwd, *_ = _weighted_matches_packed(trans, fwd, bwd, use_muse, cfg)
+    fwd, bwd, *_ = _weighted_matches_packed(trans, fwd, bwd, use_muse, cfg, mx)
     y_f = _apply_packed(trans, fwd.fxyz)
     y_b = _apply_packed(trans, bwd.txyz)
 
     # rotation centre: the weighted centroid of all mapped points
-    wsum = fwd.weight.sum(-1) + bwd.weight.sum(-1)
-    c = (
-        (y_f * fwd.weight[:, None]).sum(-1) + (y_b * bwd.weight[:, None]).sum(-1)
-    ) / torch.clamp(wsum, min=1e-30)[:, None]
-
-    AtA_f, Atb_f = _normal_equations_rigid_packed(
-        y_f - c[:, :, None], fwd.txyz - y_f, fwd.tdir, *kernels.c1c2(fwd.ttag), fwd.weight
+    w_f, w_b, wy_f, wy_b = mx.sums(
+        fwd.weight, bwd.weight, y_f * fwd.weight[:, None], y_b * bwd.weight[:, None]
     )
-    AtA_b, Atb_b = _normal_equations_rigid_packed(
-        y_b - c[:, :, None], bwd.fxyz - y_b, bwd.fdir, *kernels.c1c2(bwd.ftag), bwd.weight
+    c = (wy_f + wy_b) / torch.clamp(w_f + w_b, min=1e-30)[:, None]
+
+    AtA_f, Atb_f, AtA_b, Atb_b = mx.reduce(
+        *_normal_equations_rigid_packed(
+            y_f - c[:, :, None], fwd.txyz - y_f, fwd.tdir, *kernels.c1c2(fwd.ttag), fwd.weight
+        ),
+        *_normal_equations_rigid_packed(
+            y_b - c[:, :, None], bwd.fxyz - y_b, bwd.fdir, *kernels.c1c2(bwd.ftag), bwd.weight
+        ),
     )
     cov6 = pinv_hermitian(AtA_f + AtA_b)
     x = (cov6 * (Atb_f + Atb_b)[:, None, :]).sum(-1)
@@ -642,6 +703,8 @@ def register_candidate(
     moving_grid: torch.Tensor | None,
     model: str = "affine",
     progress_callback=None,
+    mesh=None,
+    match_axis: str = "mp",
 ) -> ICPResult:
     """Run the full symmetric robust ICP from L initialisations at once.
 
@@ -659,7 +722,13 @@ def register_candidate(
     weighted_error, number_matches)` is called with Python numbers once for
     every iteration a lane runs (the reference's per-iteration display
     callback, cdcl_estimation_abs.h:50-55): an observability tool, one
-    device read an iteration."""
+    device read an iteration.
+
+    `mesh` (`parallel.distributed.Mesh`, with `match_axis` naming one of its
+    axes) splits the match axis of every lane over the ranks of that axis
+    (match-parallel estimation; module docstring).  Every rank passes the
+    same arguments and gets the same result, equal to the one-process run up
+    to the order of the sums."""
     if model not in ("affine", "rigid"):
         raise ValueError(f"unknown transform model {model!r}")
     if model == "rigid":
@@ -667,6 +736,7 @@ def register_candidate(
         # project onto the nearest rotation before refining
         init = dataclasses.replace(init, A=orthogonalize(init.A))
     estimate_ls = _estimate_ls_packed if model == "affine" else _estimate_ls_rigid_packed
+    mx = _WHOLE if mesh is None else _MatchAxis(mesh, match_axis)
     L = init.A.shape[0]
     src_m = _pack_source(draws.scores_m, _pack_features(moving_targets), moving.mask)
     src_f = _pack_source(draws.scores_f, _pack_features(fixed_targets), fixed.mask)
@@ -681,15 +751,15 @@ def register_candidate(
         it = torch.clamp(c.iteration, max=n_offsets - 1)[:, None]
         fwd = _sample_matches_packed(
             src_m, fixed_grid, fixed_vor, c.trans, c.number_matches, cap,
-            draws.offsets_f.gather(1, it)[:, 0], dst_rows=src_f.rows,
+            draws.offsets_f.gather(1, it)[:, 0], dst_rows=src_f.rows, mx=mx,
         )
         bwd = _sample_matches_packed(
             src_f, moving_grid, moving_vor, c.trans.inverse(), c.number_matches, cap,
-            draws.offsets_b.gather(1, it)[:, 0], dst_rows=src_m.rows,
+            draws.offsets_b.gather(1, it)[:, 0], dst_rows=src_m.rows, mx=mx,
         )
-        new_trans, cov_w, fwd_w, bwd_w = estimate_ls(c.trans, fwd, bwd, use_muse, cfg)
-        we_after = _weighted_error_packed(new_trans, fwd_w)
-        we_bwd = _weighted_error_packed(new_trans.inverse(), bwd_w)
+        new_trans, cov_w, fwd_w, bwd_w = estimate_ls(c.trans, fwd, bwd, use_muse, cfg, mx)
+        we_after = _weighted_error_packed(new_trans, fwd_w, mx)
+        we_bwd = _weighted_error_packed(new_trans.inverse(), bwd_w, mx)
 
         curr_diff = we_after - c.weighted_error
         rate = curr_diff / torch.where(
@@ -715,7 +785,7 @@ def register_candidate(
         osc_new = torch.where(active & ~not_finest_switch, osc_new, osc)
         converged = converged | (active & ~not_finest_switch & conv_osc)
 
-        initial_rms = _feature_rms_packed(new_trans, fwd_w) if use_muse else c.initial_rms
+        initial_rms = _feature_rms_packed(new_trans, fwd_w, mx) if use_muse else c.initial_rms
 
         # resolution switching: double the match count (.txx:423-433)
         do_switch = converged & ~c.finest_level
@@ -781,19 +851,19 @@ def register_candidate(
     inv = c.trans.inverse()
     fwd_s = _sample_stats_packed(
         draws.stats_offset_f, src_m.order, n_valid_m, wide_m, wide_f, fixed_vor,
-        c.trans, c.number_matches, cfg.max_matches,
+        c.trans, c.number_matches, cfg.max_matches, mx,
     )
     bwd_s = _sample_stats_packed(
         draws.stats_offset_b, src_f.order, n_valid_f, wide_f, wide_m, moving_vor,
-        inv, c.number_matches, cfg.max_matches,
+        inv, c.number_matches, cfg.max_matches, mx,
     )
     fwd_pm = _as_packed_matches(fwd_s)
     fwd_w, bwd_w, *_ = _weighted_matches_packed(
-        c.trans, fwd_pm, _as_packed_matches(bwd_s), False, cfg
+        c.trans, fwd_pm, _as_packed_matches(bwd_s), False, cfg, mx
     )
-    sheet_f, tube_f = _angle_stats_packed(c.trans, fwd_s, fwd_w.weight)
-    sheet_b, tube_b = _angle_stats_packed(inv, bwd_s, bwd_w.weight)
-    final_rms = _feature_rms_packed(c.trans, fwd_pm)
+    sheet_f, tube_f = _angle_stats_packed(c.trans, fwd_s, fwd_w.weight, mx)
+    sheet_b, tube_b = _angle_stats_packed(inv, bwd_s, bwd_w.weight, mx)
+    final_rms = _feature_rms_packed(c.trans, fwd_pm, mx)
 
     return ICPResult(
         trans=c.trans, covar=c.covar, converged=c.converged, valid=c.valid,

@@ -12,8 +12,10 @@ import torch
 
 from lrr_tpu_torch.config import EstimationConfig
 from lrr_tpu_torch.estimation.icp import (
+    _WHOLE,
     ICPResult,
     VoronoiGrid,
+    _MatchAxis,
     _estimate_ls_packed,
     _pack_features,
     _pack_source,
@@ -64,25 +66,30 @@ def backward_covariance(
     fixed_targets: FeatureSet,
     fixed_grid: torch.Tensor | None,
     moving_grid: torch.Tensor | None,
+    mesh=None,
+    match_axis: str = "mp",
 ) -> torch.Tensor:
     """Covariance [L, 12, 12] of the backward (fixed->moving) transform
     parameters: swap the directions, accumulate the normal equations about
     the inverse transform (kernel K1), keep (AtA)^{-1}.  A fresh random
     subsample at the final match count.  Sources and targets as in
     `register_candidate`; the NN goes through the baked grids, which hold
-    exactly the rows the map lookup gives where a grid is None."""
+    exactly the rows the map lookup gives where a grid is None.  `mesh`
+    splits the matches over the `match_axis` ranks, as in
+    `register_candidate`."""
+    mx = _WHOLE if mesh is None else _MatchAxis(mesh, match_axis)
     inv = result.trans.inverse()
     src_f = _pack_source(draws.scores_f, _pack_features(fixed_targets), fixed.mask)
     src_m = _pack_source(draws.scores_m, _pack_features(moving_targets), moving.mask)
     fwd_sw = _sample_matches_packed(
         src_f, moving_grid, moving_vor, inv, result.number_matches, cfg.max_matches,
-        draws.offset_b, dst_rows=src_m.rows,
+        draws.offset_b, dst_rows=src_m.rows, mx=mx,
     )
     bwd_sw = _sample_matches_packed(
         src_m, fixed_grid, fixed_vor, result.trans, result.number_matches,
-        cfg.max_matches, draws.offset_f, dst_rows=src_f.rows,
+        cfg.max_matches, draws.offset_f, dst_rows=src_f.rows, mx=mx,
     )
-    _, cov_bwd, _, _ = _estimate_ls_packed(inv, fwd_sw, bwd_sw, False, cfg)
+    _, cov_bwd, _, _ = _estimate_ls_packed(inv, fwd_sw, bwd_sw, False, cfg, mx)
     return cov_bwd
 
 

@@ -27,6 +27,8 @@ import math
 import numpy as np
 import torch
 
+from lrr_tpu_torch.parallel.distributed import all_gather
+
 _OFFSETS = [
     (dz, dy, dx)
     for dz in (-1, 0, 1)
@@ -306,13 +308,24 @@ def build_feature_voronoi(
     max_shape: int = 512,
     shape_bucket: int = 32,
     exact_max_voxels: int = 64 * 1024 * 1024,
+    mesh=None,
+    axis_name: str = "sp",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A Voronoi map over the feature bounding box at `spacing_mm` (the
     reference uses a 1 mm grid, compute_distance_map.cxx:100-104), on the
     features' device.  Returns (index_vol, origin, spacing).  The shape
     comes from the bounds on the host, rounded up to `shape_bucket`
     multiples.  Maps up to `exact_max_voxels` are exact (blocked above
-    `_BLOCKED_MIN_VOXELS`); larger ones are built by jump flooding."""
+    `_BLOCKED_MIN_VOXELS`); larger ones are built by jump flooding.
+
+    With `mesh`, an exact map whose z extent divides over the `axis_name`
+    ranks (more than one) is built a z-slab a rank, and one all-gather along
+    z gives every rank the whole map.  The slab's origin is lrr_tpu's own
+    arithmetic (lrr_tpu/ops/voronoi.py:510-513): its voxel coordinates then
+    round as lrr_tpu's sharded build rounds them, which may differ from the
+    one-process map's in the last bit and flip an exact tie.  A slab goes
+    through the blocked builder when the whole map would (block boundaries
+    fall on slab boundaries when the slab depth is a multiple of 16)."""
     dev = xyz.device
     xyz_h = xyz.cpu().numpy()
     mask_h = mask.cpu().numpy()
@@ -332,4 +345,12 @@ def build_feature_voronoi(
         build = voronoi_map_exact_blocked
     else:
         build = voronoi_map_exact
+    n = 1 if mesh is None else mesh.axis_size(axis_name)
+    D, H, W = shape_zyx
+    if build is not voronoi_map and n > 1 and D % n == 0:
+        dz = D // n
+        i = mesh.axis_index(axis_name)
+        org = origin + torch.tensor([0.0, 0.0, 1.0], device=dev) * (dz * spacing[2] * i)
+        slab = build(xyz, mask, org, spacing, (dz, H, W))
+        return all_gather(mesh, slab, axis_name), origin, spacing
     return build(xyz, mask, origin, spacing, shape_zyx), origin, spacing

@@ -102,14 +102,17 @@ def load_pair_context(path: str, device=None) -> PairContext:
 
 
 def prepare_pair_cached(
-    moving: Volume, fixed: Volume, cfg: PipelineConfig, cache_path: str
+    moving: Volume, fixed: Volume, cfg: PipelineConfig, cache_path: str,
+    read: bool = True, save: bool = True,
 ) -> PairContext:
     """Stage 1 with resume: load the artifact if present (onto the volumes'
     device), else compute and save it (the file-based restartability of the
     reference pipeline).  A stale or corrupt artifact is recomputed: only
-    reading the file is guarded, nothing that runs on the device."""
+    reading the file is guarded, nothing that runs on the device.  `read`
+    False ignores a present artifact and `save` False writes none (the
+    batch driver's ranks decide both together, and one of them writes)."""
     arrays = None
-    if os.path.exists(cache_path):
+    if read and os.path.exists(cache_path):
         try:
             arrays = _read_arrays(cache_path)
         except Exception:
@@ -117,7 +120,8 @@ def prepare_pair_cached(
     if arrays is not None:
         return _context_from_arrays(arrays, moving.device)
     ctx = prepare_pair(moving, fixed, cfg)
-    tmp = cache_path + ".tmp.npz"  # keep .npz suffix so savez writes exactly here
-    save_pair_context(tmp, ctx)
-    os.replace(tmp, cache_path)
+    if save:
+        tmp = cache_path + ".tmp.npz"  # keep .npz suffix so savez writes exactly here
+        save_pair_context(tmp, ctx)
+        os.replace(tmp, cache_path)
     return ctx

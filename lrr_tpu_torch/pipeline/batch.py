@@ -12,7 +12,10 @@ runner goes through the whole pipeline over a pair list with:
   * per-pair failure isolation: an exception marks the pair failed and the
     batch continues (the reference's candidate-fallthrough philosophy at
     pair granularity);
-  * stage timing + a JSON batch report.
+  * stage timing + a JSON batch report;
+  * several processes: under the LRR_COORDINATOR / LRR_DISTRIBUTED
+    environment (parallel.distributed) every rank runs every pair, each
+    batch of queries split over the ranks, and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ import torch
 from lrr_tpu_torch.config import PipelineConfig
 from lrr_tpu_torch.io.mhd import volume_from_arrays
 from lrr_tpu_torch.io.native_loader import VolumeLoader
+from lrr_tpu_torch.parallel.distributed import (
+    all_reduce_min, global_mesh, maybe_initialize_distributed,
+)
 from lrr_tpu_torch.pipeline.artifacts import prepare_pair_cached
 from lrr_tpu_torch.pipeline.registration import register_locations_staged, result_at
 from lrr_tpu_torch.pipeline.results import write_results
@@ -69,6 +75,7 @@ def run_batch(
     query_batch: int = 8,
     device=None,
     plan_for=None,
+    mesh=None,
 ) -> dict:
     """Register every job's queries on `device` (`None`: the CUDA card) and
     write results, `.done` markers and `batch_report.json` under `out_dir`.
@@ -79,7 +86,20 @@ def run_batch(
     at query `b0` draws its `SamplingPlan` from a CPU generator seeded with
     `seed + b0` (the same plan on every device); `plan_for(ctx, b0,
     n_queries)` supplies the plan instead where a caller wants to fix the
-    draws."""
+    draws.
+
+    `mesh` splits each batch of queries over its ranks
+    (`register_locations_staged(mesh=)`).  When the LRR_COORDINATOR /
+    LRR_DISTRIBUTED environment is set (parallel.distributed), the process
+    group is initialised and, if no mesh was passed, one over every rank of
+    every process is used, as lrr_tpu/pipeline/batch.py:66-72 does.  Every
+    rank then runs every pair in lockstep and returns the same report; rank
+    0 alone writes the result files, the `.done` markers, the cached
+    contexts and `batch_report.json`.  A pair is skipped, or its context
+    read from the cache, only where every rank sees the file."""
+    if maybe_initialize_distributed() and mesh is None:
+        mesh = global_mesh()
+    writer = mesh is None or mesh.rank == 0
     device = resolve_device(device, "run_batch")
     os.makedirs(out_dir, exist_ok=True)
     cache_dir = cache_dir or os.path.join(out_dir, "artifacts")
@@ -103,13 +123,19 @@ def run_batch(
     timers = StageTimers()
     report = {"pairs": [], "completed": 0, "failed": 0, "skipped": 0}
 
+    def everywhere(path: str) -> bool:
+        """Whether every rank sees `path` (one all-reduce under a mesh)."""
+        seen = torch.tensor([int(os.path.exists(path))])
+        return bool(all_reduce_min(mesh, seen)[0])
+
     for j in jobs:
         entry = {"name": j.name, "status": "ok", "locations": []}
         done_marker = os.path.join(out_dir, f"{j.name}.done")
+        cache_path = os.path.join(cache_dir, f"{j.name}.npz")
         try:
             with timers.time("load"):
                 moving_arrays, fixed_arrays = _next_pair(loader)
-            if os.path.exists(done_marker):
+            if everywhere(done_marker):
                 entry["status"] = "skipped"
                 report["skipped"] += 1
                 report["pairs"].append(entry)
@@ -118,8 +144,7 @@ def run_batch(
             fixed = volume_from_arrays(*fixed_arrays, device)
             with timers.time("prepare"):
                 ctx = prepare_pair_cached(
-                    moving, fixed, cfg,
-                    os.path.join(cache_dir, f"{j.name}.npz"),
+                    moving, fixed, cfg, cache_path, read=everywhere(cache_path), save=writer
                 )
             # register_locations_staged is the serving path (the reference's
             # refine-in-rank-order early exit as batched waves); refining
@@ -131,18 +156,20 @@ def run_batch(
                 with timers.time("register"):
                     outs = register_locations_staged(
                         ctx, torch.tensor(padded, dtype=torch.float32, device=device),
-                        cfg, svm, plan_for(ctx, b0, query_batch),
+                        cfg, svm, plan_for(ctx, b0, query_batch), mesh=mesh,
                     )
                 for t in range(n_real):
                     out = result_at(outs, t)
                     qi = b0 + t
-                    prefix = os.path.join(out_dir, f"{j.name}_results{qi:06d}")
-                    write_results(prefix, out, qs[t])
+                    if writer:
+                        write_results(os.path.join(out_dir, f"{j.name}_results{qi:06d}"),
+                                      out, qs[t])
                     entry["locations"].append(
                         {"query": qs[t], "selected": int(out.selected)}
                     )
-            with open(done_marker, "w") as f:
-                f.write("ok\n")
+            if writer:
+                with open(done_marker, "w") as f:
+                    f.write("ok\n")
             report["completed"] += 1
         except Exception as e:  # failure isolation per pair
             entry["status"] = "failed"
@@ -153,8 +180,9 @@ def run_batch(
 
     loader.close()
     report["timers"] = timers.as_dict()
-    with open(os.path.join(out_dir, "batch_report.json"), "w") as f:
-        json.dump(report, f, indent=1)
+    if writer:
+        with open(os.path.join(out_dir, "batch_report.json"), "w") as f:
+            json.dump(report, f, indent=1)
     return report
 
 

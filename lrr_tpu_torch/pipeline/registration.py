@@ -60,6 +60,7 @@ from lrr_tpu_torch.ops.descriptors import compute_descriptors
 from lrr_tpu_torch.ops.robust import nanmedian
 from lrr_tpu_torch.ops.voronoi import build_feature_voronoi
 from lrr_tpu_torch.ops.watershed import watershed_segmentation
+from lrr_tpu_torch.parallel.distributed import all_gather, gather_rows
 from lrr_tpu_torch.pipeline.regions import compact_feature_labels, select_features_by_labels
 from lrr_tpu_torch.sampling import SamplingPlan
 from lrr_tpu_torch.types import DescriptorSet, FeatureSet, Volume, no_tf32
@@ -115,20 +116,31 @@ def assemble_pair_context(
     )
 
 
-def prepare_pair(moving: Volume, fixed: Volume, cfg: PipelineConfig) -> PairContext:
+def prepare_pair(
+    moving: Volume, fixed: Volume, cfg: PipelineConfig, mesh=None, axis_name: str = "sp",
+) -> PairContext:
     """Stage 1 for both volumes, on their device: features, keypoints,
     descriptors, Voronoi maps (ExtractFeatures + ExtractKeypoints +
-    ComputeDescriptors + compute_distance_map), then the derived state."""
+    ComputeDescriptors + compute_distance_map), then the derived state.
+
+    With `mesh` (naming `axis_name`; `parallel.distributed.Mesh`), stage 1
+    runs spatially split over its ranks, the reference's voxel-region thread
+    splitting (SplitRequestedRegion, itkFeatureImageFilter.txx:370-466): the
+    detector's dense stage goes a z-slab a rank where the level's z extent
+    divides (`features.extract._dense_stage`), and each exact Voronoi build
+    a z-slab a rank (`build_feature_voronoi`).  Everything else, K2's
+    descriptor-NN table included, runs on every rank, which then all hold
+    the same context."""
     if moving.device != fixed.device:
         raise ValueError(f"prepare_pair: volumes on {moving.device} and {fixed.device}")
-    fs_m = detect_features(moving, cfg.features)
-    fs_f = detect_features(fixed, cfg.features)
+    fs_m = detect_features(moving, cfg.features, mesh=mesh, axis_name=axis_name)
+    fs_f = detect_features(fixed, cfg.features, mesh=mesh, axis_name=axis_name)
     kp_m = extract_keypoints(fs_m, cfg.keypoints)
     kp_f = extract_keypoints(fs_f, cfg.keypoints)
     ds_m = compute_descriptors(kp_m, fs_m, cfg.descriptors)
     ds_f = compute_descriptors(kp_f, fs_f, cfg.descriptors)
-    mv = VoronoiGrid(*build_feature_voronoi(fs_m.xyz, fs_m.mask))
-    fv = VoronoiGrid(*build_feature_voronoi(fs_f.xyz, fs_f.mask))
+    mv = VoronoiGrid(*build_feature_voronoi(fs_m.xyz, fs_m.mask, mesh=mesh, axis_name=axis_name))
+    fv = VoronoiGrid(*build_feature_voronoi(fs_f.xyz, fs_f.mask, mesh=mesh, axis_name=axis_name))
     return assemble_pair_context(fs_m, fs_f, ds_m, ds_f, mv, fv)
 
 
@@ -323,6 +335,49 @@ def _wave_fn(ctx, queries, cfg, svm, inits: Affine3D, plan: SamplingPlan, lanes,
     return res, meas, probs
 
 
+# a wave's results travel as one float32 row a lane: (name, width)
+_WAVE_FIELDS = (
+    ("A", 9), ("t", 3), ("center", 3), ("covar", 144), ("meas", 8), ("probs", 1),
+    ("valid", 1), ("oscillated", 1), ("converged", 1), ("initial_rms", 1), ("final_rms", 1),
+)
+
+
+def _pack_wave(res: ICPResult, meas: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """[L, 173] float32: every per-lane output a wave hands to the host
+    (booleans as 0 / 1, exact)."""
+    cols = {
+        "A": res.trans.A, "t": res.trans.t, "center": res.trans.center, "covar": res.covar,
+        "meas": meas, "probs": probs, "valid": res.valid, "oscillated": res.oscillated,
+        "converged": res.converged, "initial_rms": res.initial_rms, "final_rms": res.final_rms,
+    }
+    L = probs.shape[0]
+    return torch.cat([cols[name].reshape(L, -1).to(torch.float32) for name, _ in _WAVE_FIELDS], 1)
+
+
+def _unpack_wave(rows: np.ndarray) -> dict[str, np.ndarray]:
+    out, col = {}, 0
+    for name, width in _WAVE_FIELDS:
+        part = rows[:, col : col + width]
+        out[name] = part[:, 0] if width == 1 else part
+        col += width
+    out["A"] = out["A"].reshape(-1, 3, 3)
+    out["covar"] = out["covar"].reshape(-1, 12, 12)
+    for name in ("valid", "oscillated", "converged"):
+        out[name] = out[name] > 0.5
+    return out
+
+
+def _pad_queries(queries: torch.Tensor, plan: SamplingPlan, n: int):
+    """Queries and plan padded to a multiple of `n` rows by repeating query
+    0 and its plan rows (lrr_tpu/pipeline/registration.py:424-434)."""
+    Q0 = queries.shape[0]
+    pad = (-Q0) % n
+    if pad == 0:
+        return queries, plan
+    rows = torch.cat([torch.arange(Q0), torch.zeros(pad, dtype=torch.long)])
+    return queries[rows.to(queries.device)], plan.take(rows.to(plan.rank_offset.device))
+
+
 def register_locations_staged(
     ctx: PairContext,
     queries: torch.Tensor,  # [Q, 3]
@@ -332,6 +387,7 @@ def register_locations_staged(
     lane_budget: int = 64,
     accept_override: float | None = None,
     max_unproductive: int = 2,
+    mesh=None,
 ) -> LocationResult:
     """Batched registration with the reference's PASS-2 early exit.
 
@@ -348,32 +404,55 @@ def register_locations_staged(
     `cfg.verify.accept_probability` as the acceptance bar: above 1 nothing
     verifies, so every usable candidate is refined through the serving
     waves (verifier calibration runs so).  `plan` holds every random draw
-    (`sampling.draw_sampling_plan`)."""
+    (`sampling.draw_sampling_plan`).  A wave's results come to the host as
+    one tensor.
+
+    With `mesh` (`parallel.distributed.Mesh`; every rank calls with the same
+    arguments) the lanes of every dispatch are split over all its ranks,
+    data-parallel, as lrr_tpu's mesh branch splits them (:596-615): the
+    queries are padded to a multiple of the rank count by repeating query 0
+    and its plan rows, the budget is `lane_budget` a rank (so k0 follows
+    the whole budget), PASS 1 runs a block of queries a rank and each wave
+    (padded the same way) a block of lanes a rank, and one all-gather a
+    dispatch gives every rank every result.  The host bookkeeping then runs
+    on the same data on every rank, so the ranks stay in lockstep."""
     no_tf32()
     dev = ctx.device
     queries = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=dev))
     svm = svm.to(dev)
-    Q = queries.shape[0]
+    Q0 = queries.shape[0]
     C = cfg.indexing.num_candidates
+    n, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    queries, plan = _pad_queries(queries, plan, n)
+    Q = queries.shape[0]
 
-    k0 = max(1, min(C, lane_budget // max(Q, 1)))
-    cmask, inits, angles, enough, qm, rank, kp_m, kp_f = _pass1_fn(ctx, queries, cfg, plan)
+    budget = lane_budget * n
+    k0 = max(1, min(C, budget // max(Q, 1)))
+    block = slice(r * (Q // n), (r + 1) * (Q // n))
+    cmask, inits, angles, enough, qm, rank, kp_m, kp_f = gather_rows(
+        mesh, _pass1_fn(ctx, queries[block], cfg, plan.take(block))
+    )
 
     def run_wave(lanes_np, cand_np):
-        lanes_t = torch.as_tensor(lanes_np, device=dev)
-        cand_t = torch.as_tensor(cand_np, device=dev)
-        res, meas, probs = _wave_fn(ctx, queries, cfg, svm, inits, plan, lanes_t, cand_t)
-        return {
-            "A": res.trans.A, "t": res.trans.t, "center": res.trans.center,
-            "covar": res.covar, "meas": meas, "probs": probs,
-            "valid": res.valid, "oscillated": res.oscillated,
-            "converged": res.converged, "initial_rms": res.initial_rms,
-            "final_rms": res.final_rms,
-        }
+        """One dispatch: (lane, candidate) pairs padded to a multiple of the
+        rank count by repeating the first, this rank's block refined, every
+        block's results gathered on every rank as one host array."""
+        m = lanes_np.size
+        pad = (-m) % n
+        lanes_t = torch.as_tensor(np.concatenate([lanes_np, np.repeat(lanes_np[:1], pad)]),
+                                  device=dev)
+        cand_t = torch.as_tensor(np.concatenate([cand_np, np.repeat(cand_np[:1], pad)]),
+                                 device=dev)
+        mine = slice(r * ((m + pad) // n), (r + 1) * ((m + pad) // n))
+        res, meas, probs = _wave_fn(
+            ctx, queries, cfg, svm, inits, plan, lanes_t[mine], cand_t[mine]
+        )
+        return _unpack_wave(all_gather(mesh, _pack_wave(res, meas, probs))[:m].cpu().numpy())
 
     rank_h = rank.cpu().numpy()
     usable0 = (cmask & enough).cpu().numpy()
     resolved = np.zeros(Q, bool)
+    resolved[Q0:] = True  # padding queries never dispatch straggler waves
     selected = np.full(Q, -1, np.int64)
 
     A = np.tile(np.eye(3, dtype=np.float32), (Q, C, 1, 1))
@@ -391,8 +470,7 @@ def register_locations_staged(
     final_rms_out = np.zeros((Q, C), np.float32)
     accept_p = cfg.verify.accept_probability if accept_override is None else accept_override
 
-    def absorb_wave(wave, lanes, cand_idx):
-        h = {k: v.cpu().numpy() for k, v in wave.items()}
+    def absorb_wave(h, lanes, cand_idx):
         usable_w = usable0[lanes, cand_idx] & h["valid"] & ~h["oscillated"]
         A[lanes, cand_idx] = h["A"]
         t[lanes, cand_idx] = h["t"]
@@ -427,7 +505,7 @@ def register_locations_staged(
     cands0 = rank_h[:, :k0].reshape(-1)
     absorb_wave(run_wave(lanes0, cands0), lanes0, cands0)
     wave_pos = np.full(Q, k0, np.int64)
-    for q in range(Q):
+    for q in range(Q0):
         resolve_from_prefix(q, k0)
 
     unproductive = 0
@@ -462,7 +540,7 @@ def register_locations_staged(
     def dev_t(x):
         return torch.as_tensor(x, device=dev)
 
-    return LocationResult(
+    out = LocationResult(
         trans=Affine3D(A=dev_t(A), t=dev_t(t), center=dev_t(center)),
         covar=dev_t(covar),
         measurements=dev_t(meas_out),
@@ -483,6 +561,7 @@ def register_locations_staged(
         initial_rms=dev_t(initial_rms_out),
         final_rms=dev_t(final_rms_out),
     )
+    return out if Q == Q0 else result_at(out, slice(0, Q0))
 
 
 def register_locations(
@@ -492,13 +571,26 @@ def register_locations(
     svm: SvmModel,
     plan: SamplingPlan,
     lane_budget: int = 64,
+    mesh=None,
 ) -> LocationResult:
     """Batched registration that refines EVERY candidate of every query
     (Q x C lanes, `lane_budget` lanes a batch) and selects afterwards: the
     first verified candidate in ascending PASS-1 key order over the
     candidates still usable after refinement (valid, not oscillating).
     Maximal information at ~C times the staged path's work; `refined` is
-    all ones.  The draws are the staged path's, so one plan serves both."""
+    all ones.  The draws are the staged path's, so one plan serves both.
+
+    With `mesh` the queries are split over all its ranks, data-parallel
+    (lrr_tpu/pipeline/registration.py:421-452): padded to a multiple of the
+    rank count by repeating query 0 and its plan rows, each rank registers
+    its block, and one all-gather gives every rank the whole result."""
+    if mesh is not None and mesh.size > 1:
+        queries = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=ctx.device))
+        Q0, n = queries.shape[0], mesh.size
+        queries, plan = _pad_queries(queries, plan, n)
+        block = slice(mesh.rank * (queries.shape[0] // n), (mesh.rank + 1) * (queries.shape[0] // n))
+        local = register_locations(ctx, queries[block], cfg, svm, plan.take(block), lane_budget)
+        return result_at(gather_rows(mesh, local), slice(0, Q0))
     no_tf32()
     dev = ctx.device
     queries = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=dev))
@@ -548,9 +640,10 @@ def register_locations(
     )
 
 
-def result_at(obj, i: int):
-    """Entry `i` along the leading dim of every tensor of a result dataclass:
-    one query's `LocationResult` out of a batched one."""
+def result_at(obj, i):
+    """Entry `i` (or the rows of a slice) along the leading dim of every
+    tensor of a result dataclass: one query's `LocationResult` out of a
+    batched one."""
     if isinstance(obj, torch.Tensor):
         return obj[i]
     return type(obj)(**{f.name: result_at(getattr(obj, f.name), i) for f in dataclasses.fields(obj)})

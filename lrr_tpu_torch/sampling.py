@@ -105,14 +105,19 @@ class SamplingPlan:
         """[Q, C, ...] -> [Q*C, ...] lanes, query-major."""
         return self._per_candidate(lambda x: x.flatten(0, 1))
 
-    def query(self, i: int) -> "SamplingPlan":
-        """The [1, C] plan of query `i`, its rigid stream included."""
+    def take(self, rows) -> "SamplingPlan":
+        """The plan of queries `rows` (a slice or an index tensor of the
+        leading dim), its rigid stream included."""
         return SamplingPlan(
             **{
-                f.name: None if getattr(self, f.name) is None else getattr(self, f.name)[i : i + 1]
+                f.name: None if getattr(self, f.name) is None else getattr(self, f.name)[rows]
                 for f in dataclasses.fields(self)
             }
         )
+
+    def query(self, i: int) -> "SamplingPlan":
+        """The [1, C] plan of query `i`, its rigid stream included."""
+        return self.take(slice(i, i + 1))
 
     def icp(self) -> ICPDraws:
         return ICPDraws(

@@ -15,13 +15,19 @@ features with theirs.  This script makes them with lrr_tpu on the CPU:
   lrr_tpu_torch/data/bench_pair_s64.npz (+ .json)
       the `bench.py::build_workload` context (64^3 phantom pair, seed 11),
       with lrr_tpu's own acceptance on its 64 bench queries, served with the
-      shipped verifier.
+      shipped verifier;
+  lrr_tpu_torch/data/bench_pair_s64_seed12.json  (`--seed12-only`)
+      lrr_tpu's acceptance on the same workload with the phantom pair of
+      seed 12 (the second pair of `chip_smoke.py`'s batch phase), by the same
+      method; the context it serves from is written to a temporary file and
+      not kept.
 
 Each .json holds the pipeline config, the true transform and the queries;
 the bench one also records lrr_tpu's `verified_frac`, `rank0_frac` and
 `median_gt_error_mm` (as `bench.py::acceptance_stats` computes them).
 
-Run from the repo root:  JAX_PLATFORMS=cpu python scripts/make_torch_fixtures.py [--small-only]
+Run from the repo root:
+  JAX_PLATFORMS=cpu python scripts/make_torch_fixtures.py [--small-only | --seed12-only]
 """
 
 from __future__ import annotations
@@ -93,7 +99,7 @@ def bench_workload():
 
 
 def write(path_npz: str, cfg, pair: dict, qspec: dict, run_reference: bool,
-          with_regions: bool = False):
+          with_regions: bool = False, path_json: str | None = None):
     import jax
     import jax.numpy as jnp
 
@@ -167,18 +173,30 @@ def write(path_npz: str, cfg, pair: dict, qspec: dict, run_reference: bool,
             verifier="lrr_tpu/data/verifier_default.model",
         )
         print(f"# reference acceptance {acc}", flush=True)
-    with open(os.path.splitext(path_npz)[0] + ".json", "w") as f:
+    path_json = path_json or os.path.splitext(path_npz)[0] + ".json"
+    with open(path_json, "w") as f:
         json.dump(meta, f, indent=1)
-    print(f"# wrote {path_npz} ({os.path.getsize(path_npz)} bytes)", flush=True)
+    print(f"# wrote {path_json} and {path_npz} ({os.path.getsize(path_npz)} bytes)", flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--small-only", action="store_true")
+    ap.add_argument("--seed12-only", action="store_true")
     args = ap.parse_args()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.seed12_only:
+        import tempfile
+
+        cfg, pair, q = bench_workload()
+        with tempfile.TemporaryDirectory() as tmp:
+            write(os.path.join(tmp, "bench_pair_s64_seed12.npz"), cfg, dict(pair, seed=12), q,
+                  run_reference=True,
+                  path_json=os.path.join(ROOT, "lrr_tpu_torch", "data",
+                                         "bench_pair_s64_seed12.json"))
+        return
     cfg, pair, q = small_workload()
     write(os.path.join(ROOT, "tests", "data", "torch_pair_small.npz"),
           cfg, pair, q, run_reference=False, with_regions=True)

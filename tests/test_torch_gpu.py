@@ -624,3 +624,162 @@ def test_intensity_percentile_past_two_to_the_24(cuda):
         assert abs(got - want) <= 1e-5 * abs(want), (p, got, want)
     out = _normalize_intensity(t.reshape(-1, 1000))
     assert out.shape == (n // 1000, 1000) and float(out.min()) == 0.0 and float(out.max()) == 1.0
+
+
+def _ranks_on_the_card(tmp_path, cases, inp):
+    """Two ranks of tests/torch_parallel_worker.py sharing the card (gloo,
+    LRR_COORDINATOR), with the kernels built here first so the ranks only
+    load them."""
+    import torch_parallel_worker as worker
+    from lrr_tpu_torch.ops import native
+
+    native.build()
+    d = str(tmp_path)
+    np.savez(os.path.join(d, "inputs.npz"), device="cuda", **inp)
+    worker.run_ranks(2, ["env", os.path.join(d, "inputs.npz"), d, *cases], d,
+                     env_route="coordinator", timeout=300)
+    return worker.load_results(d, 2, cases)
+
+
+@pytest.mark.gpu
+def test_two_ranks_split_the_score_stage_on_the_card(cuda, tmp_path):
+    """Halo exchange, the z-split score stage and the distributed normal
+    equations with CUDA tensors over gloo (through host memory): the score
+    equals the one-process score on the card bit for bit; the normal
+    equations agree to 1e-5 of the largest entry."""
+    from lrr_tpu_torch.features.extract import _score_and_outer
+    from lrr_tpu_torch.models.affine import normal_equations_terms
+    from lrr_tpu_torch.models.affine import Affine3D
+
+    rng = np.random.default_rng(1234)
+    inp = {"halo_x": rng.standard_normal((16, 5)).astype(np.float32),
+           "score_vol": rng.standard_normal((64, 24, 24)).astype(np.float32),
+           "ne_from": rng.uniform(0, 50, (512, 3)).astype(np.float32),
+           "ne_w": rng.uniform(0.1, 1.0, 512).astype(np.float32)}
+    inp["ne_to"] = inp["ne_from"] + np.float32([1.0, -0.5, 0.25])
+    inp["ne_proj"] = np.broadcast_to(np.eye(3, dtype=np.float32), (512, 3, 3)).copy()
+    res = _ranks_on_the_card(tmp_path, ["halo", "score", "normal_equations"], inp)
+    grad = filters.gaussian_gradient(torch.from_numpy(inp["score_vol"]).to(cuda), 1.0,
+                                     (1.0, 1.0, 1.0))
+    score, outer = _score_and_outer(grad)
+    for r in range(2):
+        np.testing.assert_array_equal(res["score"][r]["score"], score.cpu().numpy())
+        np.testing.assert_array_equal(res["score"][r]["outer"], outer.cpu().numpy())
+    xs = inp["halo_x"].reshape(2, 8, 5)
+    np.testing.assert_array_equal(res["halo"][0]["ext"][-2:], xs[1, :2])
+    np.testing.assert_array_equal(res["halo"][1]["ext"][:2], xs[0, -2:])
+    AtA, _ = normal_equations_terms(Affine3D.identity(device="cpu"), *(
+        torch.from_numpy(inp[k]) for k in ("ne_from", "ne_to", "ne_proj", "ne_w")))
+    got = res["normal_equations"][0]["dp1.AtA"]
+    np.testing.assert_allclose(got, AtA.numpy(), rtol=0, atol=1e-5 * float(AtA.abs().max()))
+
+
+@pytest.mark.gpu
+def test_two_ranks_serve_and_split_the_matches_on_the_card(cuda, tmp_path):
+    """The staged serving path with the lanes split over 2 ranks on the card,
+    and 16 lanes' ICP with the matches split: K1 launches on each rank;
+    selections equal the one-process run on the card (lane counts differ, so
+    bits are not promised: decisions are), the ICP within the CPU test's
+    bars."""
+    import torch_parallel_worker as worker
+    from lrr_tpu_torch.pipeline.registration import register_locations_staged
+
+    with open(SMALL + ".json") as f:
+        meta = json.load(f)
+    ctx, cfg = worker._small_context()
+    q = np.asarray(meta["queries"], np.float32)
+    plan = draw_sampling_plan(torch.Generator().manual_seed(5), 4, cfg,
+                              ctx.moving_features.capacity, ctx.fixed_features.capacity)
+    inp = {"queries": q, "queries3": q[:3]}
+    inp.update({f"plan.{k}": v.numpy() for k, v in vars(plan).items() if v is not None})
+    from lrr_tpu_torch.pipeline import registration
+    from lrr_tpu_torch.models.affine import Affine3D
+
+    cmask, inits, *_ = registration._pass1_fn(ctx, torch.from_numpy(q), cfg, plan)
+    lanes, cands = torch.arange(4).repeat_interleave(4), torch.arange(4).repeat(4)
+    init = Affine3D(inits.A[lanes, cands], inits.t[lanes, cands], inits.center[lanes, cands])
+    m_sel, f_sel, *_ = registration._candidate_rois(ctx, init, torch.from_numpy(q)[lanes], cfg)
+    inp.update({f"icp.init.{k}": getattr(init, k).numpy() for k in ("A", "t", "center")})
+    inp.update({"icp.m_sel": m_sel.numpy(), "icp.f_sel": f_sel.numpy()})
+    inp.update({f"icp.plan.{k}": v.numpy() for k, v in vars(plan.select(lanes, cands)).items()
+                if v is not None})
+    res = _ranks_on_the_card(tmp_path, ["staged", "icp_mp"], inp)
+    worker.DEVICE = "cuda"
+    try:
+        ctx_c, _ = worker._small_context()
+        one = register_locations_staged(ctx_c, torch.from_numpy(q).to(cuda), cfg,
+                                        load_default_verifier(), worker._plan(inp))
+        res_one, _ = worker.icp_lanes(ctx_c, cfg, inp, None)
+    finally:
+        worker.DEVICE = "cpu"
+    for r in range(2):
+        assert int(res["staged"][r]["launches.normal_equations"]) > 0
+        assert int(res["icp_mp"][r]["launches.normal_equations"]) > 0
+        np.testing.assert_array_equal(res["staged"][r]["q4.selected"], one.selected.cpu().numpy())
+        got = res["icp_mp"][r]
+        np.testing.assert_array_equal(got["res.iterations"], res_one.iterations.cpu().numpy())
+        np.testing.assert_allclose(got["res.trans.A"], res_one.trans.A.cpu().numpy(), atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_four_ranks_with_a_card_each_over_nccl(cuda, tmp_path):
+    """Four ranks, one card each (skips with fewer cards): CUDA tensors go
+    over NCCL.  The z-split score equals the one-process score on a card bit
+    for bit, the z-slab Voronoi map the one-process map, the (2, 2) mesh's
+    mp all-reduce the one-process normal equations to 1e-5 of the largest
+    entry, and the staged path with one query a rank selects as one process
+    does."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    import torch_parallel_worker as worker
+    from lrr_tpu_torch.features.extract import _score_and_outer
+    from lrr_tpu_torch.models.affine import Affine3D, normal_equations_terms
+    from lrr_tpu_torch.ops import native
+
+    native.build()
+    rng = np.random.default_rng(1234)
+    inp = {"score_vol": rng.standard_normal((64, 24, 24)).astype(np.float32),
+           "vor_xyz": rng.uniform(0, 60, (256, 3)).astype(np.float32),
+           "vor_mask": rng.uniform(size=256) > 0.1,
+           "ne_from": rng.uniform(0, 50, (512, 3)).astype(np.float32),
+           "ne_w": rng.uniform(0.1, 1.0, 512).astype(np.float32)}
+    inp["ne_to"] = inp["ne_from"] + np.float32([1.0, -0.5, 0.25])
+    inp["ne_proj"] = np.broadcast_to(np.eye(3, dtype=np.float32), (512, 3, 3)).copy()
+    with open(SMALL + ".json") as f:
+        meta = json.load(f)
+    ctx, cfg = worker._small_context()
+    q = np.asarray(meta["queries"], np.float32)
+    plan = draw_sampling_plan(torch.Generator().manual_seed(5), 4, cfg,
+                              ctx.moving_features.capacity, ctx.fixed_features.capacity)
+    inp.update({"queries": q, "queries3": q[:3]})
+    inp.update({f"plan.{k}": v.numpy() for k, v in vars(plan).items() if v is not None})
+    d = str(tmp_path)
+    np.savez(os.path.join(d, "inputs.npz"), device="cuda", **inp)
+    cases = ["mesh", "score", "voronoi", "normal_equations", "staged"]
+    worker.run_ranks(4, ["env", os.path.join(d, "inputs.npz"), d, *cases], d,
+                     env_route="coordinator", timeout=300)
+    res = worker.load_results(d, 4, cases)
+    assert all("nccl" in str(res["score"][r]["backend"]) for r in range(4))
+    grad = filters.gaussian_gradient(torch.from_numpy(inp["score_vol"]).to(cuda), 1.0,
+                                     (1.0, 1.0, 1.0))
+    score, _ = _score_and_outer(grad)
+    vol, _, _ = voronoi.build_feature_voronoi(torch.from_numpy(inp["vor_xyz"]).to(cuda),
+                                              torch.from_numpy(inp["vor_mask"]).to(cuda))
+    AtA, _ = normal_equations_terms(Affine3D.identity(device="cpu"), *(
+        torch.from_numpy(inp[k]) for k in ("ne_from", "ne_to", "ne_proj", "ne_w")))
+    worker.DEVICE = "cuda"
+    try:
+        ctx_c, _ = worker._small_context()
+        one = register_locations_staged(ctx_c, torch.from_numpy(q).to(cuda), cfg,
+                                        load_default_verifier(), worker._plan(inp))
+    finally:
+        worker.DEVICE = "cpu"
+    for r in range(4):
+        np.testing.assert_array_equal(res["mesh"][r]["dp_mp"], [2, 2])
+        np.testing.assert_array_equal(res["score"][r]["score"], score.cpu().numpy())
+        np.testing.assert_array_equal(res["voronoi"][r]["vol"], vol.cpu().numpy())
+        for name in ("dp1.AtA", "default.AtA"):
+            np.testing.assert_allclose(res["normal_equations"][r][name], AtA.numpy(), rtol=0,
+                                       atol=1e-5 * float(AtA.abs().max()))
+        np.testing.assert_array_equal(res["staged"][r]["q4.selected"], one.selected.cpu().numpy())
+        assert int(res["staged"][r]["launches.normal_equations"]) > 0

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import assert_equal_or_tie
 from lrr_tpu.features.extract import extract_keypoints as jkeypoints
 from lrr_tpu.ops import descriptors as jdesc
 from lrr_tpu.ops import voronoi as jvor
@@ -218,19 +219,6 @@ def test_exact_voronoi_builds_are_bit_equal(name, block):
     assert plain.dtype == torch.int32 and tuple(plain.shape) == shape
     assert torch.equal(plain, blocked)
     assert bool(mask[plain.numpy()].all())  # never a masked feature
-
-
-def assert_equal_or_tie(got, want, pts, origin, spacing):
-    """Two index maps over the same features: equal, except at voxels where
-    the two answers' squared distances (float64 of the fp32 inputs) lie
-    within 4 fp32 ulp of each other.  Returns the number of such voxels."""
-    diff = np.argwhere(got != want)
-    for z, y, x in diff:
-        q = origin.astype(np.float64) + np.array([x, y, z]) * spacing.astype(np.float64)
-        da = ((q - pts[got[z, y, x]]) ** 2).sum()
-        db = ((q - pts[want[z, y, x]]) ** 2).sum()
-        assert abs(da - db) <= 4 * np.spacing(np.float32(max(da, db))), (z, y, x, da, db)
-    return len(diff)
 
 
 @pytest.mark.parametrize("name", ["dense", "non_dyadic", "lattice"])

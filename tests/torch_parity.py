@@ -369,3 +369,16 @@ def torch_deformation_field(f):
     from lrr_tpu_torch.models.bspline import DeformationField
 
     return _fields_to_torch(f, DeformationField)
+
+
+def assert_equal_or_tie(got, want, pts, origin, spacing):
+    """Two index maps over the same features: equal, except at voxels where
+    the two answers' squared distances (float64 of the fp32 inputs) lie
+    within 4 fp32 ulp of each other.  Returns the number of such voxels."""
+    diff = np.argwhere(got != want)
+    for z, y, x in diff:
+        q = origin.astype(np.float64) + np.array([x, y, z]) * spacing.astype(np.float64)
+        da = ((q - pts[got[z, y, x]]) ** 2).sum()
+        db = ((q - pts[want[z, y, x]]) ** 2).sum()
+        assert abs(da - db) <= 4 * np.spacing(np.float32(max(da, db))), (z, y, x, da, db)
+    return len(diff)
