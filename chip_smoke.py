@@ -31,7 +31,7 @@ Phases, one line each; any failure raises and exits non-zero:
               two exact Voronoi builds against each other, and two runs
               of `detect_features` bit for bit;
   7. serve_reference   the phase-6 pair served at the reference constants
-              (train_default_verifier.py::reference_cfg: 20 candidates, 64
+              (verify/train_default.py::reference_cfg: 20 candidates, 64
               query keypoints, 8,000 matches, 70 iterations, gate 64):
               `segment_pair` (seconds per volume for diffusion, gradient
               and labels, `p[p]` rounds, basins, regions, peak memory), then
@@ -94,6 +94,24 @@ Phases, one line each; any failure raises and exits non-zero:
               11's selections); seconds, backend, peak memory and K1 / K2
               launches and shapes of each rank.  The ranks share the card:
               no scaling figure.
+ 14. train_verifier  (after phase 8, before phase 9, while phases 5-7's
+              contexts are held) `python -m lrr_tpu_torch.verify.train_default`
+              as a user runs it on the card: the five phantom pairs of
+              lrr_tpu's training script collected (rows, aligned rows,
+              seconds and peak memory a pair beside lrr_tpu's record), the
+              C-SVC fitted and written; the shipped model and the port's on
+              the port's corpus (accuracy > 0.9 a pair, tpr > 0.9 a pair with
+              50 aligned rows and pooled); the port's model serving phase 5's
+              64 queries (phase 4's bars) and phase 7's 16 with phase 7's
+              plan (>= 12 verified, < 1.0 mm) beside the shipped model's;
+              the refit of the committed corpus (`TRAIN_REUSE_CORPUS=1`): 288
+              support vectors, P(aligned) within 1e-3 of the shipped file's;
+              P(aligned) under the port's model of phase 7's sub-millimetre
+              candidates that the shipped model rejected; K1 / K2 launches
+              and shapes, held in phase 11.
+Phase 7 prints, for each query whose best refined candidate lies under 1 mm
+but verified nothing, that candidate's 8 measurements beside the verifier's
+scaling range and the committed corpus's range.
 Phase 10 also holds pair 12 to the bench's bars against lrr_tpu's figure for
 seed 12 (lrr_tpu_torch/data/bench_pair_s64_seed12.json).
 Then a JSON line of per-kernel results, the card line, and last
@@ -411,12 +429,13 @@ def k2_shape_rows(shapes: dict) -> list[dict]:
 
 
 def serve_and_check(label: str, ctx, cfg, meta, seed: int, card: str,
-                    on_path=("normal_equations", "knn"), **fields):
-    """Serve the bench queries on `ctx` (one warm-up, three timed runs), print
-    the phase line, and hold launches and acceptance to their bounds.  The
-    caller set the launch counts to 0 just before the part of its path that
-    ends here; `on_path` names the kernels that part runs.  Returns the
-    launch counts and K1's {(L, M_f, M_b): launches}."""
+                    on_path=("normal_equations", "knn"), svm=None, **fields):
+    """Serve the bench queries on `ctx` (one warm-up, three timed runs) with
+    the verifier `svm` (default: the shipped one), print the phase line, and
+    hold launches and acceptance to their bounds.  The caller set the launch
+    counts to 0 just before the part of its path that ends here; `on_path`
+    names the kernels that part runs.  Returns the launch counts and K1's
+    {(L, M_f, M_b): launches}."""
     from lrr_tpu_torch.models.affine import Affine3D
     from lrr_tpu_torch.ops import kernels
     from lrr_tpu_torch.pipeline.registration import register_locations_staged
@@ -427,7 +446,7 @@ def serve_and_check(label: str, ctx, cfg, meta, seed: int, card: str,
     queries = np.asarray(meta["queries"], np.float32)
     true = Affine3D(*(torch.tensor(meta["true"][k], device=dev) for k in ("A", "t", "center")))
     ref = meta["lrr_tpu_reference"]
-    svm = load_default_verifier()
+    svm = load_default_verifier() if svm is None else svm
     q = torch.as_tensor(queries, device=dev)
 
     def serve(run: int):
@@ -598,26 +617,6 @@ def run_stage1_bench(seed: int, card: str):
     return out, (ctx, moving, fixed, cfg, meta)
 
 
-def reference_config():
-    """The reference constants with the gate that serves the dense phantom
-    (scripts/train_default_verifier.py::reference_cfg: a 50 mm box holds
-    100-200 of its features, a tenth of chest CT's, so 64 for the
-    reference's 1000)."""
-    from lrr_tpu_torch.config import (
-        DescriptorConfig, EstimationConfig, FeatureConfig, IndexingConfig, KeypointConfig,
-        PipelineConfig,
-    )
-
-    return PipelineConfig(
-        features=FeatureConfig(max_features=65536),
-        keypoints=KeypointConfig(max_keypoints=4096),
-        descriptors=DescriptorConfig(min_neighbors=100, max_neighbors=2048),
-        indexing=IndexingConfig(num_candidates=20, max_query_keypoints=64),
-        estimation=EstimationConfig(
-            max_matches=8000, max_iterations=70, min_region_features=64),
-    )
-
-
 def run_stage1_reference(card: str):
     """Phase 6: stage 1 at the reference constants.  The pair and its
     context go on to phase 7, and so do the launch counts: set to 0 here,
@@ -626,8 +625,9 @@ def run_stage1_reference(card: str):
     from lrr_tpu_torch.features.extract import detect_features
     from lrr_tpu_torch.ops import kernels, voronoi
     from lrr_tpu_torch.utils.synthetic import make_pair
+    from lrr_tpu_torch.verify import train_default
 
-    cfg = reference_config()
+    cfg = train_default.reference_cfg()
     shape = (400, 350, 350)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -919,6 +919,7 @@ def run_serve_reference(seed: int, card: str, ref):
     final_err = gt_errors(out.trans, queries, true)
     refined = out.refined
     good = refined & (final_err < 1.0)
+    diagnosis = unverified_under_1mm(out, final_err)
     rec = {
         "card": card, "queries": Q, "candidates": C, "segment": seg,
         "plan_draw_s": plan_s, "warmup_s": times[0], "run_s": times[1:], "waves": waves[1:],
@@ -940,6 +941,7 @@ def run_serve_reference(seed: int, card: str, ref):
         "refined_under_1mm_probability": spread(out.probability[good]),
         "refined_under_1mm_unverified": out.probability[good & ~out.verified].tolist(),
         "verified_over_1mm": int((out.verified & (final_err >= 1.0)).sum()),
+        "unverified_under_1mm": diagnosis,
         "launches": launches,
         "k1_shapes": [{"L": k[0], "M_f": k[1], "M_b": k[2], "launches": n} for k, n in k1_shapes],
         "k2_shapes": k2_shape_rows(k2_shapes),
@@ -967,12 +969,46 @@ def run_serve_reference(seed: int, card: str, ref):
                              "from the run from the grids")
     # what phase 13 serves again over two ranks: the last run's plan and result
     served = {"plan_seed": seed * 1000 + 700 + 2, "selected": sel.tolist(),
+              "median_gt_error_mm": acc["median_gt_error_mm"],
               "verified": out.verified.cpu().numpy().tolist(),
               "refined": out.refined.cpu().numpy().tolist(),
               "selected_trans": {str(i): {k: getattr(out.trans, k)[i, int(sel[i])].tolist()
                                           for k in ("A", "t", "center")}
                                  for i in range(Q) if sel[i] >= 0}}
-    return launches, dict(k1_shapes), served
+    return launches, dict(k1_shapes), served, (ctx_r, queries, true, diagnosis)
+
+
+def unverified_under_1mm(out, final_err: torch.Tensor) -> list[dict]:
+    """For each query that verified nothing although a refined candidate
+    lies under 1 mm of the true transform: the best such candidate's 8
+    measurements beside the range the verifier scales them by (the
+    reference's train-set min / max) and the range of the committed training
+    corpus, each coordinate flagged where it falls outside, and P(aligned)
+    under the shipped model."""
+    from lrr_tpu_torch.verify import svm as svm_mod
+    from lrr_tpu_torch.verify.train_default import load_corpus
+
+    corpus = np.concatenate([x for _, x, _ in load_corpus()])
+    lo, hi = corpus.min(0), corpus.max(0)
+    err = torch.where(out.refined, final_err, torch.full_like(final_err, float("inf")))
+    rows = []
+    for q in range(err.shape[0]):
+        c = int(err[q].argmin())
+        if int(out.selected[q]) >= 0 or float(err[q, c]) >= 1.0:
+            continue
+        m = out.measurements[q, c].double().cpu().numpy()
+        rows.append({
+            "query": q, "candidate": c, "gt_error_mm": float(err[q, c]),
+            "measurements": m.tolist(),
+            "scaling_min": svm_mod.REFERENCE_FEATURE_MIN.tolist(),
+            "scaling_max": svm_mod.REFERENCE_FEATURE_MAX.tolist(),
+            "outside_scaling": [int(i) for i in np.nonzero(
+                (m < svm_mod.REFERENCE_FEATURE_MIN) | (m > svm_mod.REFERENCE_FEATURE_MAX))[0]],
+            "corpus_min": lo.tolist(), "corpus_max": hi.tolist(),
+            "outside_corpus": [int(i) for i in np.nonzero((m < lo) | (m > hi))[0]],
+            "p_shipped": float(out.probability[q, c]),
+        })
+    return rows
 
 
 def whole_regions(sel: torch.Tensor, box: torch.Tensor, labels: torch.Tensor) -> bool:
@@ -1879,6 +1915,7 @@ def parallel_rank(spec_path: str) -> None:
     from lrr_tpu_torch.pipeline import registration
     from lrr_tpu_torch.sampling import draw_sampling_plan
     from lrr_tpu_torch.utils.synthetic import make_pair
+    from lrr_tpu_torch.verify import train_default
     from lrr_tpu_torch.verify.svm import load_default_verifier
 
     with open(spec_path) as f:
@@ -1922,7 +1959,7 @@ def parallel_rank(spec_path: str) -> None:
     torch.cuda.reset_peak_memory_stats()
 
     # stage 1 at the reference constants, z-split over the ranks
-    cfg = reference_config()
+    cfg = train_default.reference_cfg()
     fixed, moving, true = make_pair((400, 350, 350), rotation_deg=6.0,
                                     translation=(3.0, -2.0, 1.5), seed=11, noise=0.5, dense=True)
     sp_mesh = distributed.global_mesh("sp")
@@ -2139,6 +2176,207 @@ def run_parallel(seed: int, card: str, digests: dict, served: dict, batch: dict,
     return launches, shapes("k1_shapes"), shapes("k2_shapes")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the shipped verifier's training, by the port
+# ---------------------------------------------------------------------------
+
+PAIR_BAR = 0.9  # accuracy and tpr over a pair's rows (tests/test_verify.py:196-227)
+TPR_MIN_ALIGNED = 50  # a pair with fewer aligned rows prints its tpr without a bar
+REFIT_P_TOL = 1e-3  # the refit's P(aligned) against the shipped file's
+
+
+def pooled(corpus) -> list:
+    """`corpus` with all its rows once more, under "pooled"."""
+    return [*corpus, ("pooled", np.concatenate([x for _, x, _ in corpus]),
+                      np.concatenate([y for _, _, y in corpus]))]
+
+
+def score_problems(label: str, scores: dict) -> list[str]:
+    """The bars on `train_default.corpus_scores` of a `pooled` corpus: acc
+    over each pair; tpr over each pair with at least TPR_MIN_ALIGNED aligned
+    rows and over the pooled rows."""
+    problems = []
+    for name, s in scores.items():
+        if name != "pooled" and not s["acc"] > PAIR_BAR:
+            problems.append(f"{label} {name}: acc {s['acc']} not above {PAIR_BAR}")
+        if (name == "pooled" or s["aligned"] >= TPR_MIN_ALIGNED) and not (
+                s["tpr"] is not None and s["tpr"] > PAIR_BAR):
+            problems.append(f"{label} {name}: tpr {s['tpr']} not above {PAIR_BAR}")
+    return problems
+
+
+def run_train_verifier(seed: int, card: str, bench, served_ref, served7: dict):
+    """Phase 14: `python -m lrr_tpu_torch.verify.train_default` on the card,
+    as a user runs it (no switch, no `--device`): the five phantom pairs
+    collected, the C-SVC fitted, the model written; each pair's rows,
+    seconds and peak memory beside lrr_tpu's record.  The shipped model and
+    the port's on the port's corpus; the port's model serving phase 5's
+    bench queries (phase 4's bars) and phase 7's queries with phase 7's
+    plan; the refit of the committed corpus (`TRAIN_REUSE_CORPUS=1`) against
+    the shipped file; P(aligned) under the port's model of the candidates
+    phase 7 diagnosed."""
+    import contextlib
+    import io
+
+    from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.pipeline.registration import register_locations_staged
+    from lrr_tpu_torch.sampling import draw_sampling_plan
+    from lrr_tpu_torch.verify import train_default
+    from lrr_tpu_torch.verify.svm import (
+        DEFAULT_MODEL_PATH, load_default_verifier, predict_probability, scale_measurements,
+    )
+
+    with open(DEFAULT_MODEL_PATH + ".json") as f:
+        lrr_tpu_record = {e["name"]: e for e in json.load(f)["pairs"]}
+    shipped = load_default_verifier()
+    problems = []
+    calls = []  # one record a collected pair, in call order
+    originals = {name: getattr(train_default, name)
+                 for name in ("collect_bench_pair", "collect_reference_pair")}
+
+    def measured(fn):
+        def collect(*spec, device):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            X, y = fn(*spec, device=device)
+            torch.cuda.synchronize()
+            calls.append({"spec": spec, "rows": int(len(y)), "aligned": int((y > 0).sum()),
+                          "seconds": time.perf_counter() - t0,
+                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "device": device.type})
+            return X, y
+        return collect
+
+    def run_main(out_dir: str, reuse: bool) -> tuple[float, list[str]]:
+        env = {k: os.environ.pop(k) for k in list(os.environ) if k.startswith("TRAIN_")}
+        if reuse:
+            os.environ["TRAIN_REUSE_CORPUS"] = "1"
+        printed = io.StringIO()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                train_default.main(["--out", out_dir])
+            return time.perf_counter() - t0, printed.getvalue().splitlines()
+        finally:
+            os.environ.pop("TRAIN_REUSE_CORPUS", None)
+            os.environ.update(env)
+
+    work = tempfile.mkdtemp(prefix="lrr_train_verifier_")
+    try:
+        # the path, counted: five pairs collected, the fit, the files
+        kernels.reset_launch_counts()
+        for name, fn in originals.items():
+            setattr(train_default, name, measured(fn))
+        try:
+            main_s, main_lines = run_main(os.path.join(work, "collected"), reuse=False)
+        finally:
+            for name, fn in originals.items():
+                setattr(train_default, name, fn)
+        launches = dict(kernels.LAUNCHES)
+        k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
+        collected = os.path.join(work, "collected")
+        model = load_default_verifier(os.path.join(collected, "verifier_default.model"))
+        with open(os.path.join(collected, "verifier_default.model.json")) as f:
+            written = json.load(f)
+        corpus = train_default.load_corpus(os.path.join(collected, "verifier_corpus.npz"))
+        ctx5, _, _, cfg5, meta5 = bench
+        dev = ctx5.device
+        specs = [*train_default.BENCH_SPECS, *train_default.REF_SPECS]
+        names = [name for name, _, _ in corpus]
+        if [c.pop("spec") for c in calls] != specs or len(names) != len(specs):
+            problems.append(f"{len(calls)} pairs collected, {names} in the corpus")
+        pairs = dict(zip(names, calls))
+        for name, X, y in corpus:
+            rec = lrr_tpu_record.get(name, {})
+            pairs[name]["lrr_tpu_rows_aligned"] = [rec.get("rows"), rec.get("aligned")]
+            if X.shape != (pairs[name]["rows"], 8):
+                problems.append(f"{name}: the corpus file holds {X.shape} rows")
+        if [e["name"] for e in written["pairs"]] != names:
+            problems.append(f"the written .json names {written['pairs']}")
+        if any(p["device"] != "cuda" for p in pairs.values()):
+            problems.append("a pair was not collected on the card")
+        shipped_scores = train_default.corpus_scores(shipped, pooled(corpus))
+        trained_scores = train_default.corpus_scores(model, pooled(corpus))
+        problems += score_problems("shipped model on the port's corpus", shipped_scores)
+        problems += score_problems("port's model on its corpus", trained_scores)
+        for entry in written["pairs"]:
+            s = trained_scores[entry["name"]]
+            if entry["acc"] != round(s["acc"], 4) or entry["rows"] != s["rows"]:
+                problems.append(f"the written .json says {entry}, the model scores {s}")
+
+        # the port's model serving: phase 5's bench queries with phase 4's
+        # bars (the shared function raises), then phase 7's queries and plan
+        serve_and_check("train_verifier_serve_bench", ctx5, cfg5, meta5, seed, card,
+                        svm=model, verifier="port-trained (phase 14)")
+        ctx_r, queries7, true7, diagnosis7 = served_ref
+        cfg7 = train_default.reference_cfg()
+        q7 = torch.as_tensor(queries7, device=dev)
+        plan7 = draw_sampling_plan(
+            torch.Generator().manual_seed(served7["plan_seed"]), len(queries7), cfg7,
+            ctx_r.moving_features.capacity, ctx_r.fixed_features.capacity, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out7 = register_locations_staged(ctx_r, q7, cfg7, model, plan7)
+        torch.cuda.synchronize()
+        serve7_s = time.perf_counter() - t0
+        acc7 = acceptance_stats(out7, queries7, true7)
+        sel7 = out7.selected.cpu().numpy()
+        shipped7 = np.asarray(served7["selected"])
+        serve7 = {
+            "seconds": serve7_s, "verified": int((sel7 >= 0).sum()), **acc7,
+            "selected": sel7.tolist(),
+            "shipped": {"verified": int((shipped7 >= 0).sum()),
+                        "median_gt_error_mm": served7["median_gt_error_mm"],
+                        "selected": shipped7.tolist()},
+        }
+        if serve7["verified"] < 12:
+            problems.append(f"phase 7's queries: {serve7['verified']} of {len(queries7)} "
+                            "verified, want 12")
+        if acc7["median_gt_error_mm"] is None or acc7["median_gt_error_mm"] >= 1.0:
+            problems.append(f"phase 7's queries: median GT error {acc7['median_gt_error_mm']} mm")
+        for row in diagnosis7:
+            m = torch.tensor([row["measurements"]], dtype=torch.float32, device=dev)
+            row["p_port_trained"] = float(predict_probability(
+                model.to(dev), scale_measurements(m))[0])
+            row["verified_by_port_trained"] = bool(sel7[row["query"]] >= 0)
+
+        # the refit route on the committed corpus, against the shipped file
+        refit_s, refit_lines = run_main(os.path.join(work, "refit"), reuse=True)
+        refit = load_default_verifier(os.path.join(work, "refit", "verifier_default.model"))
+        committed = train_default.load_corpus()
+        X = torch.from_numpy(np.concatenate([x for _, x, _ in committed])).to(dev)
+        diff = (predict_probability(refit.to(dev), scale_measurements(X))
+                - predict_probability(shipped.to(dev), scale_measurements(X))).abs()
+        refit_rec = {"seconds": refit_s, "rows": int(X.shape[0]),
+                     "support_vectors": int(refit.sv.shape[0]),
+                     "max_abs_p_diff_vs_shipped": float(diff.max()), "printed": refit_lines}
+        if refit_rec["support_vectors"] != 288 or refit_rec["rows"] != 1680:
+            problems.append(f"refit: {refit_rec['support_vectors']} support vectors on "
+                            f"{refit_rec['rows']} rows, want 288 on 1680")
+        if not refit_rec["max_abs_p_diff_vs_shipped"] <= REFIT_P_TOL:
+            problems.append(f"refit: P differs from the shipped file's by "
+                            f"{refit_rec['max_abs_p_diff_vs_shipped']}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    phase(
+        "train_verifier", card=card, main_s=main_s, printed=main_lines, pairs=pairs,
+        support_vectors=int(model.sv.shape[0]), prob_ab=[model.prob_a, model.prob_b],
+        shipped_on_port_corpus=shipped_scores, port_model_on_port_corpus=trained_scores,
+        serve_reference_queries=serve7, phase7_diagnosis=diagnosis7, refit=refit_rec,
+        launches=launches, **shape_rows(k1_shapes, k2_shapes),
+        peak_mem_gb=max(p["peak_mem_gb"] for p in pairs.values()), problems=problems,
+    )
+    if problems:
+        raise AssertionError("train_verifier: " + "; ".join(problems))
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"train_verifier: kernel {name} was never launched on the path")
+    return launches, k1_shapes, k2_shapes
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2176,8 +2414,10 @@ def main() -> None:
     launches4, shapes4 = run_slice(args.seed, card)
     (launches5, shapes5), bench = run_stage1_bench(args.seed, card)
     ref = run_stage1_reference(card)
-    launches7, shapes7, served7 = run_serve_reference(args.seed, card, ref)
+    launches7, shapes7, served7, served_ref = run_serve_reference(args.seed, card, ref)
     launches8, shapes8, entries8 = run_regions_bench(args.seed, card, bench)
+    launches14, shapes14, k2_14 = run_train_verifier(args.seed, card, bench, served_ref, served7)
+    del served_ref
     bench_sets = estimate_inputs(bench)
     del bench
     launches_cli, shapes_cli, k2_cli = run_cli_reference(args.seed, card, ref)
@@ -2193,11 +2433,12 @@ def main() -> None:
     by_path = {"slice": launches4, "stage1_bench": launches5,
                "stage1_reference+serve_reference": launches7, "cli_reference": launches_cli,
                "regions_bench": launches8, "batch_calibrate": launches_batch,
-               "parallel": launches13,
+               "parallel": launches13, "train_verifier": launches14,
                "regions_bench_by_entry": {
                    name: {k: e[k] for k in launches4} for name, e in entries8.items()}}
     launches = {name: sum(path[name] for path in (launches4, launches5, launches7, launches_cli,
-                                                  launches8, launches_batch, launches13))
+                                                  launches8, launches_batch, launches13,
+                                                  launches14))
                 for name in launches4}
 
     # K1 against its plain version at every shape a path gave it (as row
@@ -2206,7 +2447,8 @@ def main() -> None:
     path_shapes: dict[tuple[int, int, int], dict[str, int]] = {}
     for path, shapes in (("slice", shapes4), ("stage1_bench", shapes5),
                          ("serve_reference", shapes7), ("cli_reference", shapes_cli),
-                         ("regions_bench", shapes8), ("batch_calibrate", shapes_batch)):
+                         ("regions_bench", shapes8), ("batch_calibrate", shapes_batch),
+                         ("train_verifier", shapes14)):
         for shape, n in shapes.items():
             path_shapes.setdefault(shape, {})[path] = n
     for shape, by_rank in shapes13.items():  # per rank: "parallel_rank0", ...
@@ -2217,7 +2459,8 @@ def main() -> None:
             k1[k1_key(*shape, True)] = added[k1_key(*shape, True)] = measure_k1(
                 rng, dev, timer, *shape, True)
     k2_path_shapes: dict[tuple[int, int, int, int], dict[str, int]] = {}
-    for path, shapes in (("cli_reference", k2_cli), ("batch_calibrate", k2_batch)):
+    for path, shapes in (("cli_reference", k2_cli), ("batch_calibrate", k2_batch),
+                         ("train_verifier", k2_14)):
         for shape, n in shapes.items():
             k2_path_shapes.setdefault(shape, {})[path] = n
     for shape, by_rank in k2_13.items():

@@ -76,30 +76,17 @@ def collect_labeled_measurements(
     refined by the serving waves) and no jump to full width.  `plan` is the
     run's `SamplingPlan`; `true_transform` an `Affine3D` on the context's
     device."""
-    from lrr_tpu_torch.ops.robust import nanmedian
     from lrr_tpu_torch.pipeline.registration import register_locations_staged
 
     dev = ctx.device
     qs = torch.as_tensor(np.asarray(cal_queries, np.float32), device=dev)
-    Q = qs.shape[0]
     # permissive stand-in verifier: probabilities are ignored here
     stand_in = surrogate_verifier(seed=7, device=dev)
     out = register_locations_staged(
         ctx, qs, cfg, stand_in, plan,
         accept_override=2.0, max_unproductive=10**9,
     )
-
-    rng = np.random.default_rng(17)
-    probes = qs[:, None, :] + torch.as_tensor(
-        rng.uniform(-15, 15, (Q, 20, 3)).astype(np.float32), device=dev
-    )
-    # [Q, C] median GT mapping error of every candidate transform (the mean
-    # of the two middle probes, as `jnp.median` gives it)
-    src = true_transform.inverse().apply(probes)  # [Q, 20, 3]
-    want = true_transform.apply(src)
-    C = out.probability.shape[1]
-    d = out.trans.apply(src[:, None].expand(Q, C, 20, 3)) - want[:, None]
-    errs = nanmedian(torch.linalg.norm(d, dim=-1)).cpu().numpy()
+    errs = candidate_gt_errors(out, qs, true_transform)
 
     usable = (
         out.candidate_mask & out.enough_features & out.valid & out.refined
@@ -113,6 +100,25 @@ def collect_labeled_measurements(
     X = np.stack([meas_h[q, c] for q, c in picked]).astype(np.float32)
     y = np.asarray([1.0 if aligned[q, c] else 0.0 for q, c in picked], np.float32)
     return X, y
+
+
+def candidate_gt_errors(out, queries: torch.Tensor, true_transform) -> np.ndarray:
+    """[Q, C] median ground-truth mapping error (mm) of every candidate
+    transform of `out` on 20 probes within 15 mm of its query (seeded; the
+    mean of the two middle errors, as `jnp.median` gives it): what
+    `collect_labeled_measurements` labels by."""
+    from lrr_tpu_torch.ops.robust import nanmedian
+
+    Q = queries.shape[0]
+    rng = np.random.default_rng(17)
+    probes = queries[:, None, :] + torch.as_tensor(
+        rng.uniform(-15, 15, (Q, 20, 3)).astype(np.float32), device=queries.device
+    )
+    src = true_transform.inverse().apply(probes)  # [Q, 20, 3]
+    want = true_transform.apply(src)
+    C = out.probability.shape[1]
+    d = out.trans.apply(src[:, None].expand(Q, C, 20, 3)) - want[:, None]
+    return nanmedian(torch.linalg.norm(d, dim=-1)).cpu().numpy()
 
 
 def calibrate_verifier(

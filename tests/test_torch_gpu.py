@@ -783,3 +783,91 @@ def test_four_ranks_with_a_card_each_over_nccl(cuda, tmp_path):
                                        atol=1e-5 * float(AtA.abs().max()))
         np.testing.assert_array_equal(res["staged"][r]["q4.selected"], one.selected.cpu().numpy())
         assert int(res["staged"][r]["launches.normal_equations"]) > 0
+
+
+def _to_cpu(x):
+    """A tensor, or a dataclass / tuple of them (a context, a plan, a
+    transform), on the CPU."""
+    import dataclasses
+
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if isinstance(x, tuple):
+        return tuple(_to_cpu(v) for v in x)
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: _to_cpu(getattr(x, f.name)) for f in dataclasses.fields(x)})
+    return x
+
+
+@pytest.mark.gpu
+def test_training_pair_collected_on_the_card_labels_as_the_cpu(cuda, monkeypatch):
+    """The first bench-scale training pair (`train_default.BENCH_SPECS[0]`,
+    16 of its queries) collected through `collect_bench_pair` on the card,
+    and the same context and plan collected on the CPU, twice: as it is, and
+    with K1's sums perturbed by 1.2e-7 relative (rounding in another order).
+    The same candidates refined everywhere; the median candidate's
+    ground-truth error within 1e-3 mm of the CPU's.  The ICP amplifies
+    rounding: a lane whose match windows change on one flipped nearest
+    neighbour converges elsewhere, up to ~1.6 mm away, converged or not.  So
+    the card may move no more candidates beyond 0.1 mm, and relabel no more,
+    than the perturbation does on the CPU, with a slack of 2x + 3 for the
+    draw of the noise (measured on an H100, 700 W: 158 candidates; the card
+    moved 15 and relabeled 5, its largest move 1.63 mm; the perturbation on
+    its host moved 15 and relabeled 2, its largest move 0.72 mm).  The
+    printed line gives this run's figures."""
+    from lrr_tpu_torch.pipeline import registration
+    from lrr_tpu_torch.verify import surrogate, train_default
+
+    seen, outs = {}, []
+    real_collect, real_staged = surrogate.collect_labeled_measurements, registration.register_locations_staged
+    plain = kernels.normal_equations_sym_plain
+
+    def spy(ctx, cfg, true, queries, plan):
+        seen.update(ctx=ctx, cfg=cfg, true=true, queries=queries, plan=plan)
+        return real_collect(ctx, cfg, true, queries, plan)
+
+    def staged(*args, **kwargs):
+        outs.append(real_staged(*args, **kwargs))
+        return outs[-1]
+
+    noise = torch.Generator().manual_seed(0)
+
+    def perturbed(*args):
+        ata, atb = plain(*args)
+        ata = ata * (1 + 1.2e-7 * torch.randn(ata.shape, generator=noise))
+        return 0.5 * (ata + ata.transpose(-1, -2)), atb * (1 + 1.2e-7 * torch.randn(
+            atb.shape, generator=noise))
+
+    monkeypatch.setattr(surrogate, "collect_labeled_measurements", spy)
+    monkeypatch.setattr(registration, "register_locations_staged", staged)
+    n0 = dict(kernels.LAUNCHES)
+    X, y = train_default.collect_bench_pair(*train_default.BENCH_SPECS[0], n_queries=16)
+    assert seen["ctx"].device.type == "cuda" and seen["plan"].rank_scores.device.type == "cuda"
+    assert kernels.LAUNCHES["knn"] == n0["knn"] + 1
+    assert kernels.LAUNCHES["normal_equations"] > n0["normal_equations"]
+    args = (_to_cpu(seen["ctx"]), seen["cfg"], _to_cpu(seen["true"]), seen["queries"],
+            _to_cpu(seen["plan"]))
+    _, yc = real_collect(*args)
+    monkeypatch.setattr(kernels, "normal_equations_sym_plain", perturbed)
+    _, yp = real_collect(*args)
+    out_g, out_c, out_p = outs
+    for name in ("candidate_mask", "enough_features", "valid", "refined"):
+        for out in (out_g, out_p):
+            assert torch.equal(getattr(out, name).cpu(), getattr(out_c, name)), name
+    queries = torch.as_tensor(seen["queries"])
+    err_c = surrogate.candidate_gt_errors(out_c, queries, args[2])
+    usable = (out_c.candidate_mask & out_c.enough_features & out_c.valid & out_c.refined).numpy()
+    label = lambda e: np.where(e < 2.0, 1, np.where(e > 6.0, 0, -1))
+    figures = {"usable": int(usable.sum()), "rows": [len(y), len(yc), len(yp)]}
+    for name, out, q in (("card", out_g, queries.to(cuda)), ("perturbed", out_p, queries)):
+        err = surrogate.candidate_gt_errors(out, q, seen["true"] if name == "card" else args[2])
+        moved = np.abs(err - err_c)[usable]
+        figures[name] = {"median_mm": float(np.median(moved)), "max_mm": float(moved.max()),
+                         "moved_over_0.1mm": int((moved > 0.1).sum()),
+                         "relabeled": int((usable & (label(err) != label(err_c))).sum())}
+    print(json.dumps(figures))
+    card, ref = figures["card"], figures["perturbed"]
+    assert len(y) >= 20 and figures["usable"] >= 100
+    assert card["median_mm"] <= 1e-3
+    assert card["moved_over_0.1mm"] <= 2 * ref["moved_over_0.1mm"] + 3
+    assert card["relabeled"] <= 2 * ref["relabeled"] + 3

@@ -155,6 +155,7 @@ def test_port_imports_no_jax():
         "import lrr_tpu_torch.parallel as par\n"
         "import lrr_tpu_torch.parallel.distributed, lrr_tpu_torch.parallel.sharding\n"
         "import lrr_tpu_torch.parallel.spatial\n"
+        "import lrr_tpu_torch.verify.train_default\n"
         "assert len(par.__all__) == 10 and all(getattr(par, n) for n in par.__all__)\n"
         "import chip_smoke\n"
         "from lrr_tpu_torch.verify.svm import load_default_verifier\n"

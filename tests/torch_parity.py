@@ -382,3 +382,24 @@ def assert_equal_or_tie(got, want, pts, origin, spacing):
         db = ((q - pts[want[z, y, x]]) ** 2).sum()
         assert abs(da - db) <= 4 * np.spacing(np.float32(max(da, db))), (z, y, x, da, db)
     return len(diff)
+
+
+def torch_context(jctx):
+    """lrr_tpu PairContext -> the port's, on the CPU: lrr_tpu's sets, maps
+    and region ids; the derived state (K2's table, the grids) rebuilt by the
+    port's `assemble_pair_context` from them."""
+    from lrr_tpu_torch.estimation.icp import VoronoiGrid
+    from lrr_tpu_torch.pipeline.registration import assemble_pair_context
+
+    def vor(v):
+        return VoronoiGrid(t_(v.index_vol), t_(v.origin), t_(v.spacing))
+
+    ctx = assemble_pair_context(
+        torch_features(jctx.moving_features), torch_features(jctx.fixed_features),
+        torch_descriptors(jctx.moving_descriptors), torch_descriptors(jctx.fixed_descriptors),
+        vor(jctx.moving_vor), vor(jctx.fixed_vor),
+    )
+    for side in ("moving_region_labels", "fixed_region_labels"):
+        labels = getattr(jctx, side)
+        setattr(ctx, side, None if labels is None else t_(labels, torch.int32))
+    return ctx
