@@ -109,9 +109,23 @@ Phases, one line each; any failure raises and exits non-zero:
               P(aligned) under the port's model of phase 7's sub-millimetre
               candidates that the shipped model rejected; K1 / K2 launches
               and shapes, held in phase 11.
+ 15. sol  (after phase 13, before phase 11's line, which holds its shapes)
+              the speed-of-light report (`lrr_tpu_torch.utils.sol.
+              kernel_sol_report`) with the card line: one whole ICP iteration
+              (sampling through the baked grid, robust estimate, K1) at the
+              bench wave (64 lanes x 4096 matches) and the reference wave (20
+              x 8000) against its light bound, the 195-d descriptor NN
+              through K2 at 4096 x 4096 against its operations bound, with the
+              matmul expansion's library calls beside it, and the card's
+              measured random-gather ceilings.  Every share in (0, 1.05],
+              the gather ceilings under the streaming peak, K1 and K2
+              launched, K2's indices equal `knn_plain`'s on the report's
+              inputs.
 Phase 7 prints, for each query whose best refined candidate lies under 1 mm
 but verified nothing, that candidate's 8 measurements beside the verifier's
-scaling range and the committed corpus's range.
+scaling range and the committed corpus's range, and beside its own figures
+lrr_tpu's per-query record of the same pair and queries
+(lrr_tpu_torch/data/reference_constants_lrr_tpu.json).
 Phase 10 also holds pair 12 to the bench's bars against lrr_tpu's figure for
 seed 12 (lrr_tpu_torch/data/bench_pair_s64_seed12.json).
 Then a JSON line of per-kernel results, the card line, and last
@@ -138,9 +152,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.join(ROOT, "lrr_tpu_torch", "data", "bench_pair_s64")
 K1_TOL = 2e-5  # x max |entry|: fp32 sums in another order
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
-FP32_FLOP_PER_S = 67e12  # H100 SXM outside the tensor cores, data sheet
-K1_FLOP_PER_MATCH = 225  # normalise 15, P 15, w*P^T P 36, h h^T 6, AtA 114, Atb 39
 
 
 def phase(label: str, **fields) -> None:
@@ -241,20 +252,9 @@ def as_row_views(direction):
     return va[:, 0:3], vb[:, 0:3], va[:, 4:7], vb[:, 7], w
 
 
-def k1_bound_ms(fwd, bwd) -> tuple[float, str]:
-    """The larger of bytes over the memory rate (each input element read
-    once: 11 floats a match, the frame; the system written once) and the
-    operations these weights need (w <= 0 is skipped) over the fp32 rate."""
-    L = fwd[4].shape[0]
-    matches = fwd[4].shape[1] + bwd[4].shape[1]
-    nbytes = 4 * (L * matches * 11 + L * 11 + L * 156)
-    flop = K1_FLOP_PER_MATCH * (int((fwd[4] > 0).sum()) + int((bwd[4] > 0).sum()))
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
-
-
 def measure_k1(rng, dev, timer, L: int, m_f: int, m_b: int, rows: bool) -> dict:
     from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.utils.sol import k1_bound_ms
 
     fwd, bwd = k1_direction(rng, L, m_f, dev), k1_direction(rng, L, m_b, dev)
     frame = k1_frame(rng, L, dev)
@@ -338,6 +338,7 @@ def measure_k2(rng, dev, timer, q_n: int, p_n: int, dim: int, k: int, masked: bo
     """K2 against its plain version at one shape; `masked` masks every
     point out, else about one in seven."""
     from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.utils.sol import knn_bound_ms
 
     q = torch.tensor(rng.standard_normal((q_n, dim)), dtype=torch.float32, device=dev)
     p = torch.tensor(rng.standard_normal((p_n, dim)), dtype=torch.float32, device=dev)
@@ -358,10 +359,8 @@ def measure_k2(rng, dev, timer, q_n: int, p_n: int, dim: int, k: int, masked: bo
         if not torch.equal(d, d_p):  # the same arithmetic in the same order
             raise AssertionError(f"{label}: distances are not bit-equal")
         err = float((d - d_p).abs().max())
-    live = int(mask.sum())
     wide, splits = kernels.knn_plan(q_n, p_n, dim, k, dev)
-    by_ops = 3 * q_n * live * dim / FP32_FLOP_PER_S * 1e3
-    by_bytes = (4 * dim * (q_n + p_n) + p_n + 8 * q_n * k) / HBM_BYTES_PER_S * 1e3
+    bound, bound_by = knn_bound_ms(q_n, p_n, dim, k, int(mask.sum()))
     ms = timer.ms(lambda: kernels.knn(q, p, mask, k))
     big = q_n * p_n > 1 << 20
     return {
@@ -369,9 +368,8 @@ def measure_k2(rng, dev, timer, q_n: int, p_n: int, dim: int, k: int, masked: bo
         "bit_equal": True, "tiles": "64x64" if wide else "16x16", "point_splits": splits,
         "ms": ms, "ms_warm": timer.ms(lambda: kernels.knn(q, p, mask, k), cold=False),
         "plain_ms": timer.ms(lambda: kernels.knn_plain(q, p, mask, k), reps=3 if big else 5),
-        "bound_ms": max(by_ops, by_bytes),
-        "bound_by": "operations" if by_ops >= by_bytes else "bytes",
-        "share_of_bound": max(by_ops, by_bytes) / ms, "library_ms": None,
+        "bound_ms": bound, "bound_by": bound_by, "share_of_bound": bound / ms,
+        "library_ms": None,
     }
 
 
@@ -942,6 +940,8 @@ def run_serve_reference(seed: int, card: str, ref):
         "refined_under_1mm_unverified": out.probability[good & ~out.verified].tolist(),
         "verified_over_1mm": int((out.verified & (final_err >= 1.0)).sum()),
         "unverified_under_1mm": diagnosis,
+        "unverified_queries": [int(i) for i in np.nonzero(sel < 0)[0]],
+        "lrr_tpu_reference": lrr_tpu_reference_record(),
         "launches": launches,
         "k1_shapes": [{"L": k[0], "M_f": k[1], "M_b": k[2], "launches": n} for k, n in k1_shapes],
         "k2_shapes": k2_shape_rows(k2_shapes),
@@ -976,6 +976,26 @@ def run_serve_reference(seed: int, card: str, ref):
                                           for k in ("A", "t", "center")}
                                  for i in range(Q) if sel[i] >= 0}}
     return launches, dict(k1_shapes), served, (ctx_r, queries, true, diagnosis)
+
+
+def lrr_tpu_reference_record() -> dict:
+    """The record of lrr_tpu serving this pair and these queries at the same
+    constants, on the CPU with its own draws
+    (`lrr_tpu_torch/data/reference_constants_lrr_tpu.json`, written by
+    `scripts/make_torch_fixtures.py --reference-constants`): per query the
+    selection and the best refined candidate's P(aligned) and error."""
+    with open(os.path.join(ROOT, "lrr_tpu_torch", "data",
+                           "reference_constants_lrr_tpu.json")) as f:
+        ref = json.load(f)
+    rows = ref["per_query"]
+    return {
+        "platform": ref["platform"], "verified": ref["verified"],
+        "median_gt_error_mm": ref["median_selected_gt_error_mm"],
+        "unverified_queries": [r["query"] for r in rows if r["selected"] < 0],
+        "per_query": [{k: r[k] for k in ("query", "selected", "rank_position",
+                                         "best_refined_gt_error_mm", "best_refined_probability")}
+                      for r in rows],
+    }
 
 
 def unverified_under_1mm(out, final_err: torch.Tensor) -> list[dict]:
@@ -2377,6 +2397,67 @@ def run_train_verifier(seed: int, card: str, bench, served_ref, served7: dict):
     return launches, k1_shapes, k2_shapes
 
 
+# ---------------------------------------------------------------------------
+# phase 15: speed of light (lrr_tpu_torch.utils.sol)
+# ---------------------------------------------------------------------------
+
+
+SHARE_MAX = 1.05  # a share above 1 by more than timing noise is a wrong bound or time
+
+
+def sol_shares(report: dict) -> dict[str, float]:
+    """Every share of a bound in the report, by its path in the report."""
+    shares = {}
+    for name in ("icp_iteration_bench", "icp_iteration_reference"):
+        for key in ("fraction_of_light", "sample_fraction_of_gather_roofline"):
+            shares[f"{name}.{key}"] = report[name][key]
+    nn = report["descriptor_nn"]
+    shares["descriptor_nn.fraction_of_peak"] = nn["fraction_of_peak"]
+    for name, v in nn["variants"].items():
+        shares[f"descriptor_nn.variants.{name}.fraction_of_peak"] = v["fraction_of_peak"]
+    return shares
+
+
+def run_sol(seed: int, card: str):
+    """Phase 15: `kernel_sol_report` on the card, the launch counts set to 0
+    just before it and read just after, then K2 against its plain version on
+    the report's descriptor tables."""
+    from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.utils import sol
+
+    dev = torch.device("cuda", 0)
+    roof = sol.measured_gather_roofline(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = sol.kernel_sol_report(seed=seed, device=dev)
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
+
+    qd, pd, mask = sol.descriptor_nn_inputs(4096, 4096, seed, dev)
+    _, idx = kernels.knn(qd, pd, mask, 1)
+    _, idx_plain = kernels.knn_plain(qd, pd, mask, 1)
+    shares = sol_shares(report)
+    problems = [f"{k} = {v} outside (0, {SHARE_MAX}]" for k, v in shares.items()
+                if not 0 < v <= SHARE_MAX]
+    for key in ("gather_gb_s_padded_small", "gather_gb_s_dense_big"):
+        if not 0 < roof[key] < sol.PEAK_HBM_GBS:
+            problems.append(f"{key} = {roof[key]} GB/s, not under the peak {sol.PEAK_HBM_GBS}")
+    if not torch.equal(idx, idx_plain):
+        problems.append("K2's indices differ from knn_plain's on the report's inputs")
+    for name, n in launches.items():
+        if n <= 0:
+            problems.append(f"kernel {name} was never launched by the report")
+    phase("sol", card=card, seconds=seconds, peaks={
+        "f32_tflops": sol.PEAK_F32_TFLOPS, "tf32_tflops": sol.PEAK_TF32_TFLOPS,
+        "hbm_gbs": sol.PEAK_HBM_GBS}, gather_roofline=roof, report=report, shares=shares,
+        launches=launches, **shape_rows(k1_shapes, k2_shapes),
+        knn_indices_equal_plain=bool(torch.equal(idx, idx_plain)), problems=problems)
+    if problems:
+        raise AssertionError("sol: " + "; ".join(problems))
+    return launches, k1_shapes, k2_shapes
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2430,15 +2511,16 @@ def main() -> None:
         launches13, shapes13, k2_13 = run_parallel(args.seed, card, digests6, served7, batch10, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    launches15, shapes15, k2_15 = run_sol(args.seed, card)
     by_path = {"slice": launches4, "stage1_bench": launches5,
                "stage1_reference+serve_reference": launches7, "cli_reference": launches_cli,
                "regions_bench": launches8, "batch_calibrate": launches_batch,
-               "parallel": launches13, "train_verifier": launches14,
+               "parallel": launches13, "train_verifier": launches14, "sol": launches15,
                "regions_bench_by_entry": {
                    name: {k: e[k] for k in launches4} for name, e in entries8.items()}}
     launches = {name: sum(path[name] for path in (launches4, launches5, launches7, launches_cli,
                                                   launches8, launches_batch, launches13,
-                                                  launches14))
+                                                  launches14, launches15))
                 for name in launches4}
 
     # K1 against its plain version at every shape a path gave it (as row
@@ -2448,7 +2530,7 @@ def main() -> None:
     for path, shapes in (("slice", shapes4), ("stage1_bench", shapes5),
                          ("serve_reference", shapes7), ("cli_reference", shapes_cli),
                          ("regions_bench", shapes8), ("batch_calibrate", shapes_batch),
-                         ("train_verifier", shapes14)):
+                         ("train_verifier", shapes14), ("sol", shapes15)):
         for shape, n in shapes.items():
             path_shapes.setdefault(shape, {})[path] = n
     for shape, by_rank in shapes13.items():  # per rank: "parallel_rank0", ...
@@ -2460,7 +2542,7 @@ def main() -> None:
                 rng, dev, timer, *shape, True)
     k2_path_shapes: dict[tuple[int, int, int, int], dict[str, int]] = {}
     for path, shapes in (("cli_reference", k2_cli), ("batch_calibrate", k2_batch),
-                         ("train_verifier", k2_14)):
+                         ("train_verifier", k2_14), ("sol", k2_15)):
         for shape, n in shapes.items():
             k2_path_shapes.setdefault(shape, {})[path] = n
     for shape, by_rank in k2_13.items():

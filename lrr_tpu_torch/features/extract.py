@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from lrr_tpu_torch.config import FeatureConfig, KeypointConfig
-from lrr_tpu_torch.ops import filters
+from lrr_tpu_torch.ops import filters, ieee
 from lrr_tpu_torch.ops.contrast import contrast_keep_mask
 from lrr_tpu_torch.ops.eig3 import eigh3, unit
 from lrr_tpu_torch.ops.resample import sample_trilinear
@@ -168,7 +168,7 @@ def _subvoxel_fit(
     Ainv = (V[:, :, None, :] * winv[:, None, None, :] * V[:, None, :, :]).sum(-1)
     refinement = (Ainv * b[:, None, :]).sum(-1)  # [K, 3] in mm
 
-    ok_norm = torch.sqrt((refinement * refinement).sum(-1)) <= MAX_REFINE_NORM
+    ok_norm = ieee.sqrt((refinement * refinement).sum(-1)) <= MAX_REFINE_NORM
     strength = (_monomials(refinement) * X).sum(-1)
     ok = any_negative & ok_norm & (strength >= 0.0)
     xyz = torch.where(ok[:, None], phys + refinement, phys)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from lrr_tpu_torch.config import DescriptorConfig
+from lrr_tpu_torch.ops import ieee
 from lrr_tpu_torch.ops.eig3 import unit
 from lrr_tpu_torch.types import SHEET, DescriptorSet, FeatureSet, KeypointSet
 
@@ -121,7 +122,7 @@ def _descriptors_chunk(
 
     # ---- per-neighbour soft binning (AddToBin) -----------------------------
     cv = kp_xyz[:, None, :] - nb_xyz  # context vectors point AT the keypoint
-    radius = torch.clamp(torch.sqrt((cv * cv).sum(-1)), min=1.0)
+    radius = torch.clamp(ieee.sqrt((cv * cv).sum(-1)), min=1.0)
     az = _angles_wrt(cv, kp_az[:, None], 1)
     el = _angles_wrt(cv, kp_el[:, None], 2)
 
@@ -172,7 +173,7 @@ def _descriptors_chunk(
     flatv = torch.cat([center[:, None], shells], 1)  # [C, 1 + (R-1)*O*O, 3]
     flatv = flatv / torch.as_tensor(_wedge_norms(cfg), device=dev)[None, :, None]
     desc = flatv.reshape(C, -1)
-    nrm = torch.sqrt((desc * desc).sum(-1, keepdim=True))
+    nrm = ieee.sqrt((desc * desc).sum(-1, keepdim=True))
     desc = torch.where(nrm > 0, desc / torch.clamp(nrm, min=1e-30), desc)
 
     ok = ok_orient & (nb_valid.sum(-1) >= cfg.min_neighbors)

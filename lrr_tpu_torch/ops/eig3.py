@@ -5,7 +5,8 @@ Branch-free trigonometric (Smith's method) eigenvalues and eigenvectors by
 cross products, batched over leading dims.  The eigenvalues serve the
 singular-value sanity check of every ICP iteration and the transfer-error
 statistics; the full decomposition serves the detector's NMS directions and
-sub-voxel fit.
+sub-voxel fit.  Square roots go through `ieee.sqrt`: correctly rounded,
+and the same bits in every process, on the CPU as on the card.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from lrr_tpu_torch.ops import ieee
 
 
 def eigvalsh3(S: torch.Tensor) -> torch.Tensor:
@@ -29,7 +32,7 @@ def eigvalsh3(S: torch.Tensor) -> torch.Tensor:
     p2 = b00 * b00 + b11 * b11 + b22 * b22 + 2.0 * (
         a01 * a01 + a02 * a02 + a12 * a12
     )
-    p = torch.sqrt(torch.clamp(p2 / 6.0, min=0.0))
+    p = ieee.sqrt(torch.clamp(p2 / 6.0, min=0.0))
     safe_p = torch.where(p > 0, p, torch.ones_like(p))
 
     c00 = b11 * b22 - a12 * a12
@@ -64,11 +67,11 @@ def _eigvec(S: torch.Tensor, lam: torch.Tensor, fallback: torch.Tensor) -> torch
     n = (cand * cand).sum(-1)
     nmax, best = torch.max(n, dim=-1, keepdim=True)
     v = cand.gather(-2, best[..., None].expand(best.shape + (3,)))[..., 0, :]
-    return torch.where(nmax > 1e-24, v / torch.sqrt(torch.clamp(nmax, min=1e-30)), fallback)
+    return torch.where(nmax > 1e-24, v / ieee.sqrt(torch.clamp(nmax, min=1e-30)), fallback)
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt((v * v).sum(-1, keepdim=True))
+    return ieee.sqrt((v * v).sum(-1, keepdim=True))
 
 
 def unit(v: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from lrr_tpu_torch.ops import ieee
 from lrr_tpu_torch.parallel.distributed import all_gather
 
 _OFFSETS = [
@@ -179,15 +180,15 @@ def _block_flags(xyz, mask, origin, spacing, shape_zyx, block: int, blocks: torc
     block's nearest feature)."""
     D, H, W = shape_zyx
     nby, nbx = H // block, W // block
-    diam = torch.sqrt((((block - 1) * spacing) ** 2).sum())
+    diam = ieee.sqrt((((block - 1) * spacing) ** 2).sum())
     bxyz = torch.stack([blocks % nbx, (blocks // nbx) % nby, blocks // (nby * nbx)], -1)
     lo = origin + bxyz.float() * block * spacing  # [m, 3]
     hi = lo + (block - 1) * spacing
     d = torch.clamp(torch.maximum(lo[:, None, :] - xyz, xyz - hi[:, None, :]), min=0.0)
     d2 = d[..., 0] ** 2 + d[..., 1] ** 2 + d[..., 2] ** 2
     d2 = torch.where(mask[None, :], d2, torch.full_like(d2, torch.inf))
-    r = torch.sqrt(d2.min(-1, keepdim=True).values) + diam
-    return mask[None, :] & (torch.sqrt(d2) <= r * (1.0 + 1e-6) + 1e-3)
+    r = ieee.sqrt(d2.min(-1, keepdim=True).values) + diam
+    return mask[None, :] & (ieee.sqrt(d2) <= r * (1.0 + 1e-6) + 1e-3)
 
 
 def _block_candidate_counts(xyz, mask, origin, spacing, shape_zyx, block: int) -> torch.Tensor:

@@ -31,6 +31,8 @@ import math
 
 import torch
 
+from lrr_tpu_torch.ops import ieee
+
 
 def _pair(n: int, d: int) -> tuple[tuple[int, int], tuple[int, int]]:
     """(start, length) of the voxels that have a neighbour at offset -d
@@ -72,7 +74,7 @@ def gradient_magnitude(vol: torch.Tensor) -> torch.Tensor:
             continue
         g = (vol.narrow(ax, 2, n - 2) - vol.narrow(ax, 0, n - 2)) * 0.5
         acc.narrow(ax, 1, n - 2).add_(g * g)
-    return torch.sqrt(acc)
+    return ieee.sqrt(acc)
 
 
 def _pointer_jump(p: torch.Tensor, max_rounds: int) -> tuple[torch.Tensor, int]:

@@ -21,13 +21,23 @@ features with theirs.  This script makes them with lrr_tpu on the CPU:
       seed 12 (the second pair of `chip_smoke.py`'s batch phase), by the same
       method; the context it serves from is written to a temporary file and
       not kept.
+  lrr_tpu_torch/data/reference_constants_lrr_tpu.json  (`--reference-constants`)
+      lrr_tpu's own serving of `chip_smoke.py` phase 7's pair at the reference
+      constants: `make_pair((400, 350, 350), 6.0, (3, -2, 1.5), seed=11,
+      noise=0.5, dense=True)`, `prepare_pair` and `segment_pair` under
+      `scripts/train_default_verifier.py::reference_cfg` (the gate at 64),
+      `register_locations_staged` with the shipped verifier on phase 7's 16
+      queries (`default_rng(1)`), and per query the selection, its rank
+      position, and the best refined candidate's P(aligned), 8 measurements
+      and ground-truth error; about 20-40 GB and half an hour on the CPU.
 
 Each .json holds the pipeline config, the true transform and the queries;
 the bench one also records lrr_tpu's `verified_frac`, `rank0_frac` and
 `median_gt_error_mm` (as `bench.py::acceptance_stats` computes them).
 
 Run from the repo root:
-  JAX_PLATFORMS=cpu python scripts/make_torch_fixtures.py [--small-only | --seed12-only]
+  JAX_PLATFORMS=cpu python scripts/make_torch_fixtures.py \
+      [--small-only | --seed12-only | --reference-constants]
 """
 
 from __future__ import annotations
@@ -179,14 +189,100 @@ def write(path_npz: str, cfg, pair: dict, qspec: dict, run_reference: bool,
     print(f"# wrote {path_json} and {path_npz} ({os.path.getsize(path_npz)} bytes)", flush=True)
 
 
+def _gt_errors(trans, query: np.ndarray, q: int, true) -> np.ndarray:
+    """[C] error in mm of each of a query's transforms against the true one:
+    the median over `bench.py::acceptance_stats`' 20 probes around it."""
+    import jax
+    import jax.numpy as jnp
+
+    probe = query[None, :] + np.random.default_rng(q).uniform(-15, 15, (20, 3)).astype(np.float32)
+    src = true.inverse().apply(jnp.asarray(probe))
+    err = jax.vmap(lambda tr: jnp.linalg.norm(tr.apply(src) - true.apply(src), axis=-1))(trans)
+    return np.median(np.asarray(err), axis=-1)
+
+
+def reference_constants(path_json: str):
+    """lrr_tpu serving `chip_smoke.py` phase 7's pair and queries at the
+    reference constants (module docstring), one record per query."""
+    import jax
+    import jax.numpy as jnp
+
+    from lrr_tpu.pipeline import prepare_pair
+    from lrr_tpu.pipeline.registration import register_locations_staged, segment_pair
+    from lrr_tpu.utils.synthetic import make_pair
+    from lrr_tpu.verify import load_default_verifier
+    from scripts.train_default_verifier import reference_cfg
+
+    cfg = reference_cfg()
+    pair = dict(shape_zyx=(400, 350, 350), rotation_deg=6.0, translation=(3.0, -2.0, 1.5),
+                seed=11, noise=0.5, dense=True)
+    fixed, moving, true = make_pair(pair["shape_zyx"], rotation_deg=pair["rotation_deg"],
+                                    translation=pair["translation"], seed=pair["seed"],
+                                    noise=pair["noise"], dense=pair["dense"])
+    seconds = {}
+    t0 = time.time()
+    ctx = prepare_pair(moving, fixed, cfg)
+    jax.block_until_ready(ctx.moving_features.xyz)
+    seconds["prepare_pair"] = round(time.time() - t0, 1)
+    print(f"# prepare_pair {seconds['prepare_pair']} s", flush=True)
+    t0 = time.time()
+    ctx = segment_pair(moving, fixed, ctx)
+    jax.block_until_ready(ctx.moving_region_labels)
+    seconds["segment_pair"] = round(time.time() - t0, 1)
+    print(f"# segment_pair {seconds['segment_pair']} s", flush=True)
+    D, H, W = pair["shape_zyx"]
+    ext = [float(W), float(H), float(D)]
+    queries = np.random.default_rng(1).uniform(
+        [0.3 * e for e in ext], [0.7 * e for e in ext], (16, 3)).astype(np.float32)
+    t0 = time.time()
+    out = register_locations_staged(ctx, jnp.asarray(queries), cfg, load_default_verifier(),
+                                    jax.random.key(1))
+    jax.block_until_ready(out.selected)
+    seconds["register_locations_staged"] = round(time.time() - t0, 1)
+    rows = []
+    for q in range(len(queries)):
+        o = jax.tree.map(lambda a: a[q], out)
+        sel, rank = int(o.selected), np.asarray(o.rank)
+        err = _gt_errors(o.trans, queries[q], q, true)
+        err = np.where(np.asarray(o.refined), err, np.inf)
+        best = int(err.argmin())
+        rows.append({
+            "query": q, "selected": sel,
+            "rank_position": int(np.nonzero(rank == sel)[0][0]) if sel >= 0 else None,
+            "selected_gt_error_mm": float(err[sel]) if sel >= 0 else None,
+            "best_refined_candidate": best,
+            "best_refined_gt_error_mm": float(err[best]),
+            "best_refined_probability": float(o.probability[best]),
+            "best_refined_verified": bool(o.verified[best]),
+            "best_refined_measurements": np.asarray(o.measurements[best], np.float64).tolist(),
+        })
+    sel_err = [r["selected_gt_error_mm"] for r in rows if r["selected"] >= 0]
+    meta = {
+        "platform": "cpu", "package": "lrr_tpu", "pair": pair, "true": _affine_dict(true),
+        "config": dataclasses.asdict(cfg), "queries": queries.tolist(), "key": "key(1)",
+        "verifier": "lrr_tpu/data/verifier_default.model", "seconds": seconds,
+        "features": [int(ctx.moving_features.mask.sum()), int(ctx.fixed_features.mask.sum())],
+        "verified": sum(r["selected"] >= 0 for r in rows),
+        "median_selected_gt_error_mm": float(np.median(sel_err)) if sel_err else None,
+        "per_query": rows,
+    }
+    with open(path_json, "w") as f:
+        json.dump(meta, f, indent=1)
+    print(f"# wrote {path_json}: {meta['verified']} of 16 verified", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--small-only", action="store_true")
     ap.add_argument("--seed12-only", action="store_true")
+    ap.add_argument("--reference-constants", action="store_true")
     args = ap.parse_args()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.reference_constants:
+        return reference_constants(
+            os.path.join(ROOT, "lrr_tpu_torch", "data", "reference_constants_lrr_tpu.json"))
     if args.seed12_only:
         import tempfile
 

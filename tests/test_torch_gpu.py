@@ -871,3 +871,37 @@ def test_training_pair_collected_on_the_card_labels_as_the_cpu(cuda, monkeypatch
     assert card["median_mm"] <= 1e-3
     assert card["moved_over_0.1mm"] <= 2 * ref["moved_over_0.1mm"] + 3
     assert card["relabeled"] <= 2 * ref["relabeled"] + 3
+
+
+@pytest.mark.gpu
+def test_sol_iteration_on_gpu_matches_cpu(cuda):
+    """One ICP iteration of `utils/sol.py`'s synthetic wave (small shape) on
+    the card through K1 against the CPU's plain version: the estimate within
+    1e-4 normwise (the sums' order), K1 launched once."""
+    from lrr_tpu_torch.utils import sol
+
+    inputs = sol.synthetic_iteration_inputs(4, 256, 16, 2, seed=0)
+    A0 = torch.eye(3).expand(4, 3, 3).contiguous()
+    t0 = torch.from_numpy(inputs["t0"])
+    _, _, want = sol.iterate(sol.iteration_wave(inputs, 128, "cpu"), A0, t0, 0)
+    n0 = kernels.LAUNCHES["normal_equations"]
+    _, _, got = sol.iterate(sol.iteration_wave(inputs, 128, cuda), A0.to(cuda), t0.to(cuda), 0)
+    assert kernels.LAUNCHES["normal_equations"] == n0 + 1
+    for g, w in ((got.A, want.A), (got.t, want.t)):
+        g, w = g.cpu().numpy(), w.numpy()
+        scale = np.abs(w).reshape(4, -1).max(1)
+        assert np.all(np.abs(g - w).reshape(4, -1).max(1) <= 1e-4 * scale)
+
+
+@pytest.mark.gpu
+def test_sol_gather_roofline_on_gpu(cuda):
+    """The card's measured gather rates: positive, under the streaming peak,
+    kept for the process."""
+    from lrr_tpu_torch.utils import sol
+
+    roof = sol.measured_gather_roofline(cuda)
+    for key in ("gather_gb_s_padded_small", "gather_gb_s_dense_big"):
+        assert 0 < roof[key] < sol.PEAK_HBM_GBS
+        assert roof[key] == max(roof["gather_gb_s_by_op"][key].values())
+    assert 0 < roof["window_copy_gb_s"] < sol.PEAK_HBM_GBS
+    assert sol.measured_gather_roofline(cuda) is roof

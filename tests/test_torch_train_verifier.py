@@ -523,3 +523,34 @@ def test_main_takes_the_card_by_default(monkeypatch, tmp_path):
     assert not (tmp_path / "out").exists()
     with pytest.raises(RuntimeError, match="CUDA"):
         td.collect_bench_pair(*BENCH_CASE)
+
+
+def test_reference_constants_record_is_phase7s_workload():
+    """lrr_tpu's committed serving record of the CT-scale pair
+    (`scripts/make_torch_fixtures.py --reference-constants`), which
+    `chip_smoke.py` phase 7 prints beside the port's: made at the port's
+    `reference_cfg`, on phase 6's pair and phase 7's 16 queries.  lrr_tpu
+    too leaves queries 5 and 10 unverified, with sub-millimetre candidates
+    that the shipped model gives P < 0.05."""
+    import types
+
+    import chip_smoke
+
+    with open(os.path.join(ROOT, "lrr_tpu_torch", "data", "reference_constants_lrr_tpu.json")) as f:
+        ref = json.load(f)
+    assert ref["config"] == json.loads(json.dumps(dataclasses.asdict(td.reference_cfg())))
+    assert ref["pair"] == {"shape_zyx": [400, 350, 350], "rotation_deg": 6.0,
+                           "translation": [3.0, -2.0, 1.5], "seed": 11, "noise": 0.5,
+                           "dense": True}
+    moving = types.SimpleNamespace(data=types.SimpleNamespace(shape=(400, 350, 350)))
+    np.testing.assert_array_equal(np.asarray(ref["queries"], np.float32),
+                                  chip_smoke.reference_queries(moving))
+    rows = ref["per_query"]
+    assert [r["query"] for r in rows] == list(range(16))
+    assert ref["verified"] == sum(r["selected"] >= 0 for r in rows) == 14
+    lost = [r for r in rows if r["selected"] < 0]
+    assert [r["query"] for r in lost] == [5, 10]
+    for r in lost:
+        assert r["best_refined_gt_error_mm"] < 1.0 and r["best_refined_probability"] < 0.05
+        assert len(r["best_refined_measurements"]) == 8
+    assert chip_smoke.lrr_tpu_reference_record()["unverified_queries"] == [5, 10]
