@@ -121,6 +121,21 @@ Phases, one line each; any failure raises and exits non-zero:
               the gather ceilings under the streaming peak, K1 and K2
               launched, K2's indices equal `knn_plain`'s on the report's
               inputs.
+ 16. wave_graphs  (after phase 14, while phase 7's context is held) every
+              serving phase above runs its waves from captured CUDA graphs
+              (`pipeline/wave_graph.py`); here phase 4's bench context and
+              phase 7's context at the reference constants are each served
+              by the eager waves (`registration._wave_fn`, the oracle) and by
+              the graphs, alternating, 9 runs a path on shared plans:
+              seconds (median and spread), the graphs' build seconds per lane
+              bucket, replays and host reads a wave, peak memory, the two
+              paths' results bit for bit, both inside phase 4's and phase
+              7's bars; one profiled graph run of the bench (the device's
+              busy share); then K3 (`csrc/pinv_sym.cu`) against its plain
+              version and float64 on the 64 systems of one eager bench wave
+              and on SPD, rank-deficient and non-finite batches (n 12 at
+              L 1 / 8 / 16 / 20 / 24 / 32 / 64, n 6 at L 1 / 8 / 24 / 64), with
+              times, bound and the library call.
 Phase 7 prints, for each query whose best refined candidate lies under 1 mm
 but verified nothing, that candidate's 8 measurements beside the verifier's
 scaling range and the committed corpus's range, and beside its own figures
@@ -135,6 +150,7 @@ Then a JSON line of per-kernel results, the card line, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -151,6 +167,10 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.join(ROOT, "lrr_tpu_torch", "data", "bench_pair_s64")
+# K3's launches on every path, {(L, n): {path: launches}}: each phase folds
+# `kernels.PINV_SHAPES` in where it reads its counts (`note_pinv_shapes`),
+# and K3 is held against its plain version at every one of them
+PINV_PATH_SHAPES: dict[tuple[int, int], dict[str, int]] = {}
 K1_TOL = 2e-5  # x max |entry|: fp32 sums in another order
 
 
@@ -195,6 +215,16 @@ class Timer:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return statistics.median(times)
+
+
+def note_pinv_shapes(path: str, shapes: dict | None = None) -> None:
+    """Fold the (L, n) shapes `path` launched K3 at (`kernels.PINV_SHAPES`,
+    or a rank's `shapes`) into PINV_PATH_SHAPES."""
+    from lrr_tpu_torch.ops import kernels
+
+    for shape, n in (kernels.PINV_SHAPES if shapes is None else shapes).items():
+        by_path = PINV_PATH_SHAPES.setdefault(tuple(shape), {})
+        by_path[path] = by_path.get(path, 0) + n
 
 
 def ptxas_report(logs: dict[str, str]) -> dict:
@@ -446,6 +476,7 @@ def serve_and_check(label: str, ctx, cfg, meta, seed: int, card: str,
     ref = meta["lrr_tpu_reference"]
     svm = load_default_verifier() if svm is None else svm
     q = torch.as_tensor(queries, device=dev)
+    counts0 = kernels.counts()
 
     def serve(run: int):
         g = torch.Generator().manual_seed(seed * 1000 + run)
@@ -467,6 +498,7 @@ def serve_and_check(label: str, ctx, cfg, meta, seed: int, card: str,
         times.append(s)
     launches = dict(kernels.LAUNCHES)
     k1_shapes = sorted(kernels.K1_SHAPES.items(), key=lambda kv: -kv[1])
+    note_pinv_shapes(label, kernels.counts_since(counts0)[3])
 
     acc = acceptance_stats(out, queries, true)
     rec = {
@@ -870,13 +902,18 @@ def run_serve_reference(seed: int, card: str, ref):
     del grown, box
 
     waves, outs, times = [], [], []
-    wave_fn = registration._wave_fn
+    wave_runner = registration._wave_runner
 
-    def counted(ctx_, queries_, cfg_, svm_, inits_, plan_, lanes, cand_idx):
-        waves[-1].append(int(lanes.numel()))
-        return wave_fn(ctx_, queries_, cfg_, svm_, inits_, plan_, lanes, cand_idx)
+    def counted(*args, **kwargs):  # lanes a wave, its bucket included
+        run = wave_runner(*args, **kwargs)
 
-    registration._wave_fn = counted
+        def counted_run(queries_, inits_, plan_, lanes, cand_idx):
+            waves[-1].append(int(lanes.numel()))
+            return run(queries_, inits_, plan_, lanes, cand_idx)
+
+        return counted_run
+
+    registration._wave_runner = counted
     try:
         # warm-up on plan 0; timed runs on plans 1, 2 and 2 again
         for run in (0, 1, 2, 2):
@@ -890,9 +927,10 @@ def run_serve_reference(seed: int, card: str, ref):
             times.append(time.perf_counter() - t0)
             outs.append(out)
     finally:
-        registration._wave_fn = wave_fn
+        registration._wave_runner = wave_runner
     launches = dict(kernels.LAUNCHES)
     k1_shapes = sorted(kernels.K1_SHAPES.items(), key=lambda kv: -kv[1])
+    note_pinv_shapes("serve_reference")
     k2_shapes = dict(kernels.K2_SHAPES)
 
     # the last plan again from the bare index maps (after the counts were
@@ -1081,6 +1119,7 @@ def run_regions_bench(seed: int, card: str, bench):
             problems.append(f"{name}: K1 was never launched")
         if not k1_on_path and n["normal_equations"] != 0:
             problems.append(f"{name}: K1 launched {n['normal_equations']} times off its path")
+        note_pinv_shapes(f"regions_bench_{name}")
         kernels.reset_launch_counts()
 
     kernels.reset_launch_counts()
@@ -1339,6 +1378,7 @@ def run_cli_reference(seed: int, card: str, ref):
         run("register", register + ["--out", p("results")])
         launches = dict(kernels.LAUNCHES)
         k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
+        note_pinv_shapes("cli_reference")
         run("register", register + ["--out", p("results_again")])
         twice = same_files(p("results"), p("results_again"))
         if twice:
@@ -1668,6 +1708,7 @@ def run_batch_calibrate(seed: int, card: str, work: str):
             problems.append(f"{name}: the serialised model's probabilities differ by {file_diff}")
     launches = dict(kernels.LAUNCHES)
     k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
+    note_pinv_shapes("batch_calibrate")
     total_bytes = tree_bytes(work)
     phase(
         "batch_calibrate", card=card, queries_per_pair=len(queries),
@@ -1884,6 +1925,7 @@ def run_estimate(seed: int, card: str, bench_sets, ref):
         shutil.rmtree(work, ignore_errors=True)
 
     launches = dict(kernels.LAUNCHES)
+    note_pinv_shapes("estimate")
     phase("estimate", card=card, points=[int(mov_xyz.shape[0]), int(fix_xyz.shape[0])],
           cdc_iterations_flag=ESTIMATE_ITERATIONS, identity_error_mm=ident_b, methods=methods,
           similarity2d=sim, fit_affine_to_field=fit_rec, multiresolution_masks=decimate,
@@ -1957,6 +1999,7 @@ def parallel_rank(spec_path: str) -> None:
     launches = {}
     k1_shapes: dict[str, int] = {}
     k2_shapes: dict[str, int] = {}
+    pinv_shapes: dict[str, int] = {}
 
     def part(name: str, fn):
         """Run one part with the counts set to 0 just before it and read just
@@ -1974,6 +2017,9 @@ def parallel_rank(spec_path: str) -> None:
         for shape, n in kernels.K2_SHAPES.items():
             key = "x".join(map(str, shape))
             k2_shapes[key] = k2_shapes.get(key, 0) + n
+        for shape, n in kernels.PINV_SHAPES.items():
+            key = "x".join(map(str, shape))
+            pinv_shapes[key] = pinv_shapes.get(key, 0) + n
         return out
 
     torch.cuda.reset_peak_memory_stats()
@@ -2121,6 +2167,7 @@ def parallel_rank(spec_path: str) -> None:
                         f"phase 10's {spec['batch']['selected']['pair11']}")
 
     rec.update(seconds=seconds, launches=launches, k1_shapes=k1_shapes, k2_shapes=k2_shapes,
+               pinv_shapes=pinv_shapes,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, problems=problems)
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -2191,8 +2238,11 @@ def run_parallel(seed: int, card: str, digests: dict, served: dict, batch: dict,
                     f"parallel_rank{rec['rank']}"] = n
         return merged
 
+    for rec in ranks:
+        note_pinv_shapes(f"parallel_rank{rec['rank']}", {
+            tuple(int(v) for v in k.split("x")): n for k, n in rec["pinv_shapes"].items()})
     launches = {name: sum(part[name] for rec in ranks for part in rec["launches"].values())
-                for name in ("normal_equations", "knn")}
+                for name in ranks[0]["launches"]["serve"]}
     return launches, shapes("k1_shapes"), shapes("k2_shapes")
 
 
@@ -2296,6 +2346,7 @@ def run_train_verifier(seed: int, card: str, bench, served_ref, served7: dict):
                 setattr(train_default, name, fn)
         launches = dict(kernels.LAUNCHES)
         k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
+        note_pinv_shapes("train_verifier")
         collected = os.path.join(work, "collected")
         model = load_default_verifier(os.path.join(collected, "verifier_default.model"))
         with open(os.path.join(collected, "verifier_default.model.json")) as f:
@@ -2336,11 +2387,13 @@ def run_train_verifier(seed: int, card: str, bench, served_ref, served7: dict):
         plan7 = draw_sampling_plan(
             torch.Generator().manual_seed(served7["plan_seed"]), len(queries7), cfg7,
             ctx_r.moving_features.capacity, ctx_r.fixed_features.capacity, dev)
+        counts7 = kernels.counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out7 = register_locations_staged(ctx_r, q7, cfg7, model, plan7)
         torch.cuda.synchronize()
         serve7_s = time.perf_counter() - t0
+        note_pinv_shapes("train_verifier_serve_reference", kernels.counts_since(counts7)[3])
         acc7 = acceptance_stats(out7, queries7, true7)
         sel7 = out7.selected.cpu().numpy()
         shipped7 = np.asarray(served7["selected"])
@@ -2433,6 +2486,7 @@ def run_sol(seed: int, card: str):
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
+    note_pinv_shapes("sol")
 
     qd, pd, mask = sol.descriptor_nn_inputs(4096, 4096, seed, dev)
     _, idx = kernels.knn(qd, pd, mask, 1)
@@ -2456,6 +2510,303 @@ def run_sol(seed: int, card: str):
     if problems:
         raise AssertionError("sol: " + "; ".join(problems))
     return launches, k1_shapes, k2_shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 16: waves from captured CUDA graphs, and K3
+# ---------------------------------------------------------------------------
+
+PINV_TOL_F64 = 1e-6  # x max |entry|: K3 against float64 on the same float32 inputs
+PINV_TOL_KAPPA = 100  # K3 against the plain version: 100 x kappa x eps_f32 x max |entry|
+WAVE_RUNS = 9  # eager and graph runs of each context, alternating
+
+
+def pinv_f64(a: torch.Tensor) -> tuple[np.ndarray, float]:
+    """The plain version's cut on the float32 matrices, solved in float64,
+    and the largest condition number among the eigenvalues kept."""
+    x = a.double().cpu().numpy()
+    n = x.shape[-1]
+    w, v = np.linalg.eigh(x)
+    big = np.abs(w).max(-1, keepdims=True)
+    keep = np.abs(w) > 10 * n * 2.0**-23 * big
+    inv = np.where(keep, 1.0 / np.where(keep, w, 1.0), 0.0)
+    small = np.where(keep, np.abs(w), np.inf).min(-1)
+    return (v * inv[:, None, :]) @ np.swapaxes(v, 1, 2), float((big[:, 0] / small).max())
+
+
+def pinv_bound_ms(L: int, n: int) -> tuple[float, str]:
+    """K3's least time from its inputs alone: the L float32 matrices read
+    and their pseudo-inverses written once at the HBM rate, or the float32
+    operations of the function at the float32 peak: 9 n^3 a matrix for the
+    symmetric eigendecomposition with eigenvectors (Golub and Van Loan's
+    count for the symmetric QR algorithm) and n^3 for V diag(1/lambda) V^T
+    (one triangle, 2 n an entry).  The kernel's float64 Jacobi does more
+    than this; the bound does not move with it."""
+    from lrr_tpu_torch.utils.sol import PEAK_F32_TFLOPS, PEAK_HBM_GBS
+
+    t_bytes = 2 * L * n * n * 4 / (PEAK_HBM_GBS * 1e9) * 1e3
+    t_ops = L * 10 * n**3 / (PEAK_F32_TFLOPS * 1e12) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def measure_pinv(timer, a: torch.Tensor, label: str) -> dict:
+    """K3 against its plain version (`kernels.pinv_hermitian_plain`) and
+    float64 on one batch: bits twice, symmetry, all-NaN for a non-finite
+    matrix, the errors against their tolerances, times and bound."""
+    from lrr_tpu_torch.ops import kernels
+
+    L, n = a.shape[0], a.shape[-1]
+    got = kernels.pinv_hermitian_small(a)
+    again = kernels.pinv_hermitian_small(a)
+    plain = kernels.pinv_hermitian_plain(a)
+    rot = torch.zeros(L, dtype=torch.int32, device=a.device)
+    kernels.pinv_hermitian_small(a, rot)
+    torch.cuda.synchronize()
+    bits = got.view(torch.int32)  # NaN-safe: compare the bits
+    if not torch.equal(bits, again.view(torch.int32)):
+        raise AssertionError(f"K3 {label}: two launches on the same inputs differ")
+    if not torch.equal(bits, bits.transpose(1, 2)):
+        raise AssertionError(f"K3 {label}: the pseudo-inverse is not symmetric")
+    ok = torch.isfinite(a).flatten(1).all(1)
+    if not (bool(torch.isnan(got[~ok]).all()) and bool(torch.isnan(plain[~ok]).all())):
+        raise AssertionError(f"K3 {label}: a non-finite matrix did not give all-NaN")
+    rec = {"L": L, "n": n, "non_finite": int((~ok).sum())}
+    if bool(ok.any()):
+        f64, kappa = pinv_f64(a[ok])
+        scale = float(np.abs(f64).max())
+        err_f64 = float(np.abs(got[ok].cpu().numpy() - f64).max())
+        err = float((got[ok] - plain[ok]).abs().max())
+        tol = PINV_TOL_KAPPA * kappa * 2.0**-23 * float(plain[ok].abs().max())
+        rec.update(max_abs_err=err, tolerance=tol, max_abs_err_f64=err_f64,
+                   tolerance_f64=PINV_TOL_F64 * scale, kappa=kappa, max_abs_entry=scale)
+        if err_f64 > PINV_TOL_F64 * scale or err > tol:
+            raise AssertionError(f"K3 {label}: err {err} (tol {tol}), against float64 "
+                                 f"{err_f64} (tol {PINV_TOL_F64 * scale})")
+    bound, by = pinv_bound_ms(L, n)
+    ms = timer.ms(lambda: kernels.pinv_hermitian_small(a))
+    rec.update(
+        rotations=spread(rot.float()),  # a diagnostic: the bound does not use it
+        bit_identical=True, ms=ms,
+        ms_warm=timer.ms(lambda: kernels.pinv_hermitian_small(a), cold=False),
+        plain_ms=timer.ms(lambda: kernels.pinv_hermitian_plain(a), reps=5),
+        bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
+        library_ms=timer.ms(lambda: torch.linalg.pinv(a, hermitian=True), reps=5)
+        if bool(ok.all()) else None)
+    return rec
+
+
+def pinv_batch(rng, L: int, n: int, kind: str, dev) -> torch.Tensor:
+    """Symmetric [L, n, n]: V diag(lam) V^T, |lam| over three decades; "rank"
+    zeroes two eigenvalues, "nonfinite" puts a NaN or an inf into every third
+    matrix."""
+    out = np.empty((L, n, n), np.float32)
+    for i in range(L):
+        v, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        lam = np.logspace(0, -3, n) * 10.0 ** rng.uniform(-2, 2)
+        if kind == "rank":
+            lam[-2:] = 0.0
+        x = (v * lam) @ v.T
+        out[i] = (x + x.T) / 2
+    if kind == "nonfinite":
+        out[::3, 1, n - 1] = np.nan
+        out[1::3, 0, 0] = np.inf
+    return torch.tensor(out, device=dev)
+
+
+@contextlib.contextmanager
+def eager_waves():
+    """Serve through the eager `_wave_fn`, the graphs' oracle."""
+    from lrr_tpu_torch.pipeline import registration
+
+    runner = registration._wave_runner
+    registration._wave_runner = registration._eager_wave_runner
+    try:
+        yield
+    finally:
+        registration._wave_runner = runner
+
+
+def serve_both_paths(ctx, q, cfg, svm, plan_for, runs: int = WAVE_RUNS) -> dict:
+    """One warm-up run a path (the graphs' buckets are built in the graph
+    one), then `runs` eager and `runs` graph runs alternating, each pair on
+    one plan and compared bit for bit; then one run a path for its peak
+    memory."""
+    from lrr_tpu_torch.pipeline import registration, wave_graph
+
+    def serve(plan, graphs: bool):
+        with contextlib.nullcontext() if graphs else eager_waves():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = registration.register_locations_staged(ctx, q, cfg, svm, plan)
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    wave_graph.drop()
+    _, warm_graph_s = serve(plan_for(100), True)
+    _, warm_eager_s = serve(plan_for(100), False)
+    built = wave_graph.stats()
+    times = {True: [], False: []}
+    equal, outs = True, {}
+    for i in range(runs):
+        plan = plan_for(i)
+        for graphs in ((False, True) if i % 2 == 0 else (True, False)):
+            outs[graphs], s = serve(plan, graphs)
+            times[graphs].append(s)
+        equal = equal and wave_graph.first_difference(outs[True], outs[False]) is None
+    after = wave_graph.stats()
+    waves = after["waves"] - built["waves"]
+    peak = {}
+    for graphs in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        serve(plan_for(0), graphs)
+        peak["graph" if graphs else "eager"] = torch.cuda.max_memory_allocated() / 1e9
+
+    def summary(x):
+        return {"runs_s": x, "median_s": statistics.median(x), "min_s": min(x), "max_s": max(x)}
+
+    return {
+        "eager": summary(times[False]), "graph": summary(times[True]),
+        "warmup_s": {"graph_with_build": warm_graph_s, "eager": warm_eager_s},
+        "build_s_by_bucket": built["build_s"], "buckets": sorted(built["build_s"]),
+        "graph_waves": waves,
+        "replays_per_wave": (after["replays"] - built["replays"]) / max(waves, 1),
+        "host_reads_per_wave": (after["syncs"] - built["syncs"]) / max(waves, 1) + 1,
+        "graph_equal_eager": equal, "peak_mem_gb": peak,
+    }, outs[True], outs[False]
+
+
+def device_busy(wall_fn) -> dict:
+    """One call of `wall_fn` under torch.profiler: its wall seconds, the
+    union of the device's kernel intervals in it, and their share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wall_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return {"wall_s": wall, "device_busy_s": busy / 1e6, "device_busy_share": busy / 1e6 / wall,
+            "device_kernels": len(spans)}
+
+
+def run_wave_graphs(seed: int, card: str, served_ref, ref_cfg, timer):
+    """Phase 16: the bench context (phase 4's) and phase 7's context at the
+    reference constants, each served by the eager waves and by the captured
+    graphs in alternating runs: seconds, the graphs' build per bucket,
+    replays and host reads a wave, peak memory, the two paths' results bit
+    for bit, and both inside their acceptance bars; one profiled graph run
+    of the bench for the device's busy share; then K3 against its plain
+    version on the systems of one eager bench wave and on synthetic
+    batches."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.models.affine import Affine3D
+    from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.pipeline import registration, wave_graph
+    from lrr_tpu_torch.pipeline.artifacts import load_pair_context
+    from lrr_tpu_torch.sampling import draw_sampling_plan
+    from lrr_tpu_torch.verify.svm import load_default_verifier
+
+    svm = load_default_verifier()
+    meta, cfg = load_bench_meta()
+    ctx_r, queries_r, true_r, _ = served_ref
+    problems = []
+    # the main path, counted: context load (K2), both paths serving both
+    # contexts, and the profiled run
+    kernels.reset_launch_counts()
+    ctx = load_pair_context(BENCH + ".npz")
+    dev = ctx.device
+    queries = np.asarray(meta["queries"], np.float32)
+    q = torch.as_tensor(queries, device=dev)
+    true = Affine3D(*(torch.tensor(meta["true"][k], device=dev) for k in ("A", "t", "center")))
+
+    def bench_plan(run: int):
+        return draw_sampling_plan(torch.Generator().manual_seed(seed * 1000 + 1600 + run),
+                                  len(queries), cfg, ctx.moving_features.capacity,
+                                  ctx.fixed_features.capacity, dev)
+
+    bench, g_out, e_out = serve_both_paths(ctx, q, cfg, svm, bench_plan)
+    ref = meta["lrr_tpu_reference"]
+    cap = max(1.0, 1.5 * ref["median_gt_error_mm"])
+    for path, out in (("graph", g_out), ("eager", e_out)):
+        acc = bench[f"{path}_acceptance"] = acceptance_stats(out, queries, true)
+        if (acc["verified_frac"] < ref["verified_frac"] - 2.0 / len(queries)
+                or acc["rank0_frac"] < ref["rank0_frac"] - 2.0 / len(queries)
+                or acc["median_gt_error_mm"] is None or acc["median_gt_error_mm"] > cap):
+            problems.append(f"bench {path}: acceptance {acc} outside the bars (error <= {cap})")
+    bench["profiled_graph_run"] = device_busy(
+        lambda: registration.register_locations_staged(ctx, q, cfg, svm, bench_plan(200)))
+
+    q_r = torch.as_tensor(queries_r, device=dev)
+
+    def ref_plan(run: int):
+        return draw_sampling_plan(torch.Generator().manual_seed(seed * 1000 + 1700 + run),
+                                  len(queries_r), ref_cfg, ctx_r.moving_features.capacity,
+                                  ctx_r.fixed_features.capacity, dev)
+
+    reference, g_ref, e_ref = serve_both_paths(ctx_r, q_r, ref_cfg, svm, ref_plan)
+    for path, out in (("graph", g_ref), ("eager", e_ref)):
+        acc = reference[f"{path}_acceptance"] = acceptance_stats(out, queries_r, true_r)
+        verified = reference[f"{path}_verified"] = int((out.selected >= 0).sum())
+        if verified < 12 or acc["median_gt_error_mm"] is None or acc["median_gt_error_mm"] >= 1.0:
+            problems.append(f"reference {path}: {verified} verified, {acc}")
+    wave_graph.drop()
+    launches = dict(kernels.LAUNCHES)
+    k1_shapes, pinv_shapes = dict(kernels.K1_SHAPES), dict(kernels.PINV_SHAPES)
+    note_pinv_shapes("wave_graphs")
+    for name, n in launches.items():
+        if n <= 0:
+            problems.append(f"kernel {name} was never launched on the path")
+    for label, rec in (("bench", bench), ("reference", reference)):
+        if not rec["graph_equal_eager"]:
+            problems.append(f"{label}: the graph runs differ from the eager runs")
+
+    # K3 on the 12 x 12 systems of one eager bench wave (its first launch
+    # there: 64 lanes), then on synthetic batches
+    systems = []
+    pinv = kernels.pinv_hermitian_small
+
+    def keep(a, rotations=None):
+        systems.append(a.clone())
+        return pinv(a, rotations)
+
+    kernels.pinv_hermitian_small = keep
+    try:
+        with eager_waves():
+            registration.register_locations_staged(ctx, q, cfg, svm, bench_plan(0))
+    finally:
+        kernels.pinv_hermitian_small = pinv
+    wave_ata = next(a for a in systems if a.shape[0] == 64 and a.shape[-1] == 12)
+    rng = np.random.default_rng(seed + 16)
+    k3 = {"bench_wave_64x12": measure_pinv(timer, wave_ata, "bench wave")}
+    # the lane counts the paths give K3 (the buckets, phase 15's 20 lanes,
+    # the rigid refinement's one) and 1 / 8 / 24 / 64 for n = 6
+    for L, n in [(L, 12) for L in (1, 8, 16, 20, 24, 32, 64)] + [(L, 6) for L in (1, 8, 24, 64)]:
+        for kind in ("spd", "rank", "nonfinite"):
+            rec = measure_pinv(timer, pinv_batch(rng, L, n, kind, dev), f"{L}x{n} {kind}")
+            k3[f"{L}x{n}_{kind}"] = rec
+    phase("wave_graphs", card=card, iterations_per_check=icp.ITERATIONS_PER_CHECK,
+          bench=bench, reference=reference, launches=launches,
+          k1_shapes=[{"L": k[0], "M_f": k[1], "M_b": k[2], "launches": n}
+                     for k, n in sorted(k1_shapes.items(), key=lambda kv: -kv[1])],
+          pinv_shapes=[{"L": k[0], "n": k[1], "launches": n} for k, n in sorted(pinv_shapes.items())],
+          pinv_sym=k3, problems=problems)
+    if problems:
+        raise AssertionError("wave_graphs: " + "; ".join(problems))
+    return launches, k1_shapes, k3
 
 
 def main() -> None:
@@ -2498,6 +2849,7 @@ def main() -> None:
     launches7, shapes7, served7, served_ref = run_serve_reference(args.seed, card, ref)
     launches8, shapes8, entries8 = run_regions_bench(args.seed, card, bench)
     launches14, shapes14, k2_14 = run_train_verifier(args.seed, card, bench, served_ref, served7)
+    launches16, shapes16, k3 = run_wave_graphs(args.seed, card, served_ref, ref[4], timer)
     del served_ref
     bench_sets = estimate_inputs(bench)
     del bench
@@ -2516,11 +2868,12 @@ def main() -> None:
                "stage1_reference+serve_reference": launches7, "cli_reference": launches_cli,
                "regions_bench": launches8, "batch_calibrate": launches_batch,
                "parallel": launches13, "train_verifier": launches14, "sol": launches15,
+               "wave_graphs": launches16,
                "regions_bench_by_entry": {
                    name: {k: e[k] for k in launches4} for name, e in entries8.items()}}
     launches = {name: sum(path[name] for path in (launches4, launches5, launches7, launches_cli,
                                                   launches8, launches_batch, launches13,
-                                                  launches14, launches15))
+                                                  launches14, launches15, launches16))
                 for name in launches4}
 
     # K1 against its plain version at every shape a path gave it (as row
@@ -2530,7 +2883,8 @@ def main() -> None:
     for path, shapes in (("slice", shapes4), ("stage1_bench", shapes5),
                          ("serve_reference", shapes7), ("cli_reference", shapes_cli),
                          ("regions_bench", shapes8), ("batch_calibrate", shapes_batch),
-                         ("train_verifier", shapes14), ("sol", shapes15)):
+                         ("train_verifier", shapes14), ("sol", shapes15),
+                         ("wave_graphs", shapes16)):
         for shape, n in shapes.items():
             path_shapes.setdefault(shape, {})[path] = n
     for shape, by_rank in shapes13.items():  # per rank: "parallel_rank0", ...
@@ -2552,13 +2906,30 @@ def main() -> None:
         if k2_key(*shape) not in k2:
             k2[k2_key(*shape)] = k2_added[k2_key(*shape)] = measure_k2(
                 rng, dev, timer, *shape, False)
+    # K3 against its plain version and float64 at every (L, n) a path gave
+    # it that phase 16 did not hold
+    k3_added = {}
+    for L, n in sorted(PINV_PATH_SHAPES):
+        for kind in ("spd", "rank", "nonfinite"):
+            key = f"{L}x{n}_{kind}"
+            if key not in k3:
+                k3[key] = k3_added[key] = measure_pinv(
+                    timer, pinv_batch(rng, L, n, kind, dev), key)
+    unchecked = [shape for shape in PINV_PATH_SHAPES
+                 if "max_abs_err" not in k3.get(f"{shape[0]}x{shape[1]}_spd", {})]
     phase("kernels_path_shapes", card=card, normal_equations=added, knn=k2_added,
+          pinv_sym=k3_added,
           launches={k1_key(*shape, True): n for shape, n in sorted(path_shapes.items())},
-          knn_launches={k2_key(*shape): n for shape, n in sorted(k2_path_shapes.items())})
+          knn_launches={k2_key(*shape): n for shape, n in sorted(k2_path_shapes.items())},
+          pinv_sym_launches={f"{L}x{n}": by for (L, n), by in sorted(PINV_PATH_SHAPES.items())},
+          pinv_sym_unchecked=unchecked)
+    if unchecked:
+        raise AssertionError(f"kernels_path_shapes: K3 unchecked at {unchecked}")
 
     # each kernel at the shape the serving path (phase 4) gives it most often
     k1_main = max(shapes4, key=shapes4.get)
     k1m, k2m, k2r = k1[k1_key(*k1_main, True)], k2["128x128x195_k1"], k2["4096x4096x195_k1"]
+    k3m = k3["bench_wave_64x12"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": "normal_equations", "route": "cuda",
@@ -2580,6 +2951,17 @@ def main() -> None:
                                  "launches": sum(n.values()), "launches_by_path": n}
                 for shape, n in sorted(k2_path_shapes.items())
                 if k2_key(*shape) not in ("128x128x195_k1", "4096x4096x195_k1")}}},
+        {"name": "pinv_sym", "route": "cuda", "source": "lrr_tpu_torch/csrc/pinv_sym.cu",
+         "replaces": None,
+         "note": "no Pallas counterpart: lrr_tpu leaves the ICP's pseudo-inverse to XLA's "
+                 "eigensolver inside its wave program; the port's plain version is "
+                 "torch.linalg.pinv(hermitian=True), which reads its status back on the host",
+         "launches": launches["pinv_sym"], **{k: k3m[k] for k in keys},
+         "shape": "64x12x12 (one bench wave's systems)",
+         "other_path_shapes": {
+             f"{L}x{n}x{n}": {**{k: k3[f"{L}x{n}_spd"][k] for k in keys},
+                              "launches": sum(by.values()), "launches_by_path": by}
+             for (L, n), by in sorted(PINV_PATH_SHAPES.items())}},
     ], "launch_floor_ms": floor_ms, "launches_by_path": by_path}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,9 @@ One call refines L candidate lanes at once: every per-candidate tensor has a
 leading lane dim (what `vmap` gives in the JAX package), and the JAX
 `lax.while_loop` is a Python loop over iterations with a per-lane `active`
 mask; finished lanes keep their carry through `torch.where`, which is what
-`vmap(while_loop)` does.
+`vmap(while_loop)` does.  The loop reads "any lane active" back once every
+`ITERATIONS_PER_CHECK` iterations (`Refinement`, whose parts
+pipeline/wave_graph.py captures as CUDA graphs on the card).
 
 Per iteration (see the JAX package for the reference citations): forward
 and backward matches from a rolling window of each lane's random source
@@ -192,9 +194,8 @@ def _proj_rows_to_dir_tag(proj9: torch.Tensor, valid: torch.Tensor):
     tr = proj9[0] + proj9[4] + proj9[8]
     is_sheet = tr < 1.5
     is_tube = (~is_sheet) & (tr < 2.5)
-    eye9 = torch.tensor(
-        [1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0], dtype=proj9.dtype, device=proj9.device
-    )
+    eye9 = torch.zeros(9, dtype=proj9.dtype, device=proj9.device)
+    eye9[::4] = 1.0  # made on the device: no host value inside a CUDA graph
     s = torch.where(is_sheet[None, :], proj9, eye9[:, None] - proj9)
     diag = torch.stack([s[0], s[4], s[8]])
     j = torch.argmax(diag, dim=0)
@@ -688,76 +689,75 @@ def _staged_caps(cfg: EstimationConfig) -> list[int]:
     return caps
 
 
-def register_candidate(
-    moving: FeatureSet,
-    fixed: FeatureSet,
-    fixed_vor: VoronoiGrid,
-    moving_vor: VoronoiGrid,
-    init: Affine3D,  # [L]
-    cfg: EstimationConfig,
-    draws: ICPDraws,
-    *,
-    moving_targets: FeatureSet,
-    fixed_targets: FeatureSet,
-    fixed_grid: torch.Tensor | None,
-    moving_grid: torch.Tensor | None,
-    model: str = "affine",
-    progress_callback=None,
-    mesh=None,
-    match_axis: str = "mp",
-) -> ICPResult:
-    """Run the full symmetric robust ICP from L initialisations at once.
+# Iterations a level runs between two host reads of "is any lane still
+# active" (`register_candidate`, and each chunk graph of
+# pipeline/wave_graph.py).  A lane that is done is frozen by the mask, so the
+# results are the same bits for every value; a larger one costs up to
+# ITERATIONS_PER_CHECK - 1 masked iterations a level, a smaller one a host
+# read each.
+ITERATIONS_PER_CHECK = 2
 
-    `moving`/`fixed` are the SAMPLING sources: the target sets under a
-    per-lane mask [L, N] (the candidate's ROI).  `moving_targets`/
-    `fixed_targets` are the match TARGET sets the Voronoi maps index into
-    (itkLocationRegistration.cxx:1645-1650), and `fixed_grid`/`moving_grid`
-    their baked NN-row grids (`bake_target_grid`), or None for a map above
-    `FUSED_GRID_MAX_VOXELS`: matching then goes through the bare index map
-    (no grid is baked per call, which would sweep the whole map).
 
-    `model` is "affine" (12 dof, kernel K1) or "rigid" (6-dof small-angle
-    increments, BASELINE config 3); sampling, robust weighting, convergence
-    and the doubling schedule are the same.  `progress_callback(iteration,
-    weighted_error, number_matches)` is called with Python numbers once for
-    every iteration a lane runs (the reference's per-iteration display
-    callback, cdcl_estimation_abs.h:50-55): an observability tool, one
-    device read an iteration.
+class Refinement:
+    """`register_candidate` cut into the parts a CUDA graph captures: the
+    sampling sources and the iteration body are built once (`__init__`);
+    `start` is the carry after the peeled MUSE iteration, `step` one masked
+    iteration of a level, `flags` whether any lane is active at each level,
+    `finish` the final statistics pass.  Arguments as `register_candidate`."""
 
-    `mesh` (`parallel.distributed.Mesh`, with `match_axis` naming one of its
-    axes) splits the match axis of every lane over the ranks of that axis
-    (match-parallel estimation; module docstring).  Every rank passes the
-    same arguments and gets the same result, equal to the one-process run up
-    to the order of the sums."""
-    if model not in ("affine", "rigid"):
-        raise ValueError(f"unknown transform model {model!r}")
-    if model == "rigid":
-        # keypoint-frame initialisations are only approximately orthogonal:
-        # project onto the nearest rotation before refining
-        init = dataclasses.replace(init, A=orthogonalize(init.A))
-    estimate_ls = _estimate_ls_packed if model == "affine" else _estimate_ls_rigid_packed
-    mx = _WHOLE if mesh is None else _MatchAxis(mesh, match_axis)
-    L = init.A.shape[0]
-    src_m = _pack_source(draws.scores_m, _pack_features(moving_targets), moving.mask)
-    src_f = _pack_source(draws.scores_f, _pack_features(fixed_targets), fixed.mask)
-    n_valid_m = src_m.valid_count
-    n_valid_f = src_f.valid_count
-    n_offsets = cfg.max_iterations + 1
+    def __init__(self, moving: FeatureSet, fixed: FeatureSet, fixed_vor: VoronoiGrid,
+                 moving_vor: VoronoiGrid, cfg: EstimationConfig, draws: ICPDraws, *,
+                 moving_targets: FeatureSet, fixed_targets: FeatureSet,
+                 fixed_grid: torch.Tensor | None, moving_grid: torch.Tensor | None,
+                 model: str = "affine", mesh=None, match_axis: str = "mp"):
+        if model not in ("affine", "rigid"):
+            raise ValueError(f"unknown transform model {model!r}")
+        self.model, self.cfg, self.draws = model, cfg, draws
+        self.fixed_vor, self.moving_vor = fixed_vor, moving_vor
+        self.fixed_grid, self.moving_grid = fixed_grid, moving_grid
+        self.moving_targets, self.fixed_targets = moving_targets, fixed_targets
+        self.estimate_ls = _estimate_ls_packed if model == "affine" else _estimate_ls_rigid_packed
+        self.mx = _WHOLE if mesh is None else _MatchAxis(mesh, match_axis)
+        self.src_m = _pack_source(draws.scores_m, _pack_features(moving_targets), moving.mask)
+        self.src_f = _pack_source(draws.scores_f, _pack_features(fixed_targets), fixed.mask)
+        self.caps = _staged_caps(cfg)
 
-    def cond(c: _Carry):
-        return (~c.converged) & (c.iteration < cfg.max_iterations) & c.valid
+    def initial(self, init: Affine3D) -> _Carry:
+        """The carry before iteration 0."""
+        if self.model == "rigid":
+            # keypoint-frame initialisations are only approximately
+            # orthogonal: project onto the nearest rotation before refining
+            init = dataclasses.replace(init, A=orthogonalize(init.A))
+        L, dev = init.A.shape[0], init.A.device
+        zf = torch.zeros(L, dtype=init.A.dtype, device=dev)
+        zi = torch.zeros(L, dtype=torch.int64, device=dev)
+        return _Carry(
+            trans=init, covar=torch.zeros((L, 12, 12), dtype=init.A.dtype, device=dev),
+            weighted_error=zf, we_bwd=zf, error_difference=zf, oscillation_count=zi,
+            number_matches=torch.full_like(zi, self.cfg.initial_matches),
+            finest_level=torch.zeros(L, dtype=torch.bool, device=dev), iteration=zi,
+            converged=torch.zeros(L, dtype=torch.bool, device=dev),
+            valid=torch.ones(L, dtype=torch.bool, device=dev), initial_rms=zf,
+        )
 
-    def make_body(cap: int, use_muse: bool, c: _Carry) -> _Carry:
+    def start(self, init: Affine3D) -> _Carry:
+        """Iteration 0, with the MUSE scale, on every lane."""
+        return self.body(self.caps[0], True, self.initial(init))
+
+    def body(self, cap: int, use_muse: bool, c: _Carry) -> _Carry:
+        """One iteration of every lane at match capacity `cap`."""
+        cfg, draws, mx = self.cfg, self.draws, self.mx
+        n_offsets = cfg.max_iterations + 1
         it = torch.clamp(c.iteration, max=n_offsets - 1)[:, None]
         fwd = _sample_matches_packed(
-            src_m, fixed_grid, fixed_vor, c.trans, c.number_matches, cap,
-            draws.offsets_f.gather(1, it)[:, 0], dst_rows=src_f.rows, mx=mx,
+            self.src_m, self.fixed_grid, self.fixed_vor, c.trans, c.number_matches, cap,
+            draws.offsets_f.gather(1, it)[:, 0], dst_rows=self.src_f.rows, mx=mx,
         )
         bwd = _sample_matches_packed(
-            src_f, moving_grid, moving_vor, c.trans.inverse(), c.number_matches, cap,
-            draws.offsets_b.gather(1, it)[:, 0], dst_rows=src_m.rows, mx=mx,
+            self.src_f, self.moving_grid, self.moving_vor, c.trans.inverse(), c.number_matches,
+            cap, draws.offsets_b.gather(1, it)[:, 0], dst_rows=self.src_m.rows, mx=mx,
         )
-        new_trans, cov_w, fwd_w, bwd_w = estimate_ls(c.trans, fwd, bwd, use_muse, cfg, mx)
+        new_trans, cov_w, fwd_w, bwd_w = self.estimate_ls(c.trans, fwd, bwd, use_muse, cfg, mx)
         we_after = _weighted_error_packed(new_trans, fwd_w, mx)
         we_bwd = _weighted_error_packed(new_trans.inverse(), bwd_w, mx)
 
@@ -790,7 +790,7 @@ def register_candidate(
         # resolution switching: double the match count (.txx:423-433)
         do_switch = converged & ~c.finest_level
         new_number = torch.where(do_switch, c.number_matches * 2, c.number_matches)
-        at_max = (new_number >= n_valid_m) & (new_number >= n_valid_f)
+        at_max = (new_number >= self.src_m.valid_count) & (new_number >= self.src_f.valid_count)
         new_finest = torch.where(do_switch, at_max, c.finest_level)
         osc_new = torch.where(do_switch, torch.zeros_like(osc_new), osc_new)
         new_err_diff = torch.where(do_switch, torch.zeros_like(curr_diff), curr_diff)
@@ -805,72 +805,138 @@ def register_candidate(
             initial_rms=initial_rms,
         )
 
-    dev = init.A.device
-    zf = torch.zeros(L, dtype=init.A.dtype, device=dev)
-    zi = torch.zeros(L, dtype=torch.int64, device=dev)
-    c0 = _Carry(
-        trans=init, covar=torch.zeros((L, 12, 12), dtype=init.A.dtype, device=dev),
-        weighted_error=zf, we_bwd=zf, error_difference=zf, oscillation_count=zi,
-        number_matches=torch.full_like(zi, cfg.initial_matches),
-        finest_level=torch.zeros(L, dtype=torch.bool, device=dev), iteration=zi,
-        converged=torch.zeros(L, dtype=torch.bool, device=dev),
-        valid=torch.ones(L, dtype=torch.bool, device=dev), initial_rms=zf,
-    )
+    def active(self, c: _Carry, k: int) -> torch.Tensor:
+        """[L] lanes that run at level k: not done, and (below the last
+        level) within the level's match capacity."""
+        act = (~c.converged) & (c.iteration < self.cfg.max_iterations) & c.valid
+        if k < len(self.caps) - 1:
+            act = act & (c.number_matches <= self.caps[k])
+        return act
 
-    # iteration 0 (with the MUSE scale) is peeled off and runs on every lane;
-    # then one loop per doubling level with that level's static capacity
+    def flags(self, c: _Carry) -> torch.Tensor:
+        """[levels] bool: whether any lane runs at each level."""
+        return torch.stack([self.active(c, k).any() for k in range(len(self.caps))])
+
+    def step(self, c: _Carry, k: int) -> _Carry:
+        """One iteration of level k; lanes not active there keep their carry."""
+        return _where(self.active(c, k), self.body(self.caps[k], False, c), c)
+
+    def levels(self, c: _Carry) -> _Carry:
+        """Every level after iteration 0, ITERATIONS_PER_CHECK iterations
+        between two host reads."""
+        for k in range(len(self.caps)):
+            while bool(self.active(c, k).any()):
+                for _ in range(ITERATIONS_PER_CHECK):
+                    c = self.step(c, k)
+        return c
+
+    def finish(self, c: _Carry) -> ICPResult:
+        """Final angle statistics from one full-payload weighted pass at the
+        final transform (the JAX package solves the system here too and
+        discards it; only the weights are used, so only the weighting
+        runs)."""
+        cfg, draws, mx = self.cfg, self.draws, self.mx
+        wide_m = _pack_features_wide(self.moving_targets)
+        wide_f = _pack_features_wide(self.fixed_targets)
+        inv = c.trans.inverse()
+        fwd_s = _sample_stats_packed(
+            draws.stats_offset_f, self.src_m.order, self.src_m.valid_count, wide_m, wide_f,
+            self.fixed_vor, c.trans, c.number_matches, cfg.max_matches, mx,
+        )
+        bwd_s = _sample_stats_packed(
+            draws.stats_offset_b, self.src_f.order, self.src_f.valid_count, wide_f, wide_m,
+            self.moving_vor, inv, c.number_matches, cfg.max_matches, mx,
+        )
+        fwd_pm = _as_packed_matches(fwd_s)
+        fwd_w, bwd_w, *_ = _weighted_matches_packed(
+            c.trans, fwd_pm, _as_packed_matches(bwd_s), False, cfg, mx
+        )
+        sheet_f, tube_f = _angle_stats_packed(c.trans, fwd_s, fwd_w.weight, mx)
+        sheet_b, tube_b = _angle_stats_packed(inv, bwd_s, bwd_w.weight, mx)
+        final_rms = _feature_rms_packed(c.trans, fwd_pm, mx)
+
+        return ICPResult(
+            trans=c.trans, covar=c.covar, converged=c.converged, valid=c.valid,
+            oscillated=c.oscillation_count > cfg.max_oscillations,
+            iterations=c.iteration, weighted_error=c.weighted_error,
+            weighted_error_backward=c.we_bwd, sheet_angles=sheet_f, tube_angles=tube_f,
+            sheet_angles_backward=sheet_b, tube_angles_backward=tube_b,
+            number_matches=c.number_matches, initial_rms=c.initial_rms,
+            final_rms=final_rms,
+        )
+
+
+def register_candidate(
+    moving: FeatureSet,
+    fixed: FeatureSet,
+    fixed_vor: VoronoiGrid,
+    moving_vor: VoronoiGrid,
+    init: Affine3D,  # [L]
+    cfg: EstimationConfig,
+    draws: ICPDraws,
+    *,
+    moving_targets: FeatureSet,
+    fixed_targets: FeatureSet,
+    fixed_grid: torch.Tensor | None,
+    moving_grid: torch.Tensor | None,
+    model: str = "affine",
+    progress_callback=None,
+    mesh=None,
+    match_axis: str = "mp",
+) -> ICPResult:
+    """Run the full symmetric robust ICP from L initialisations at once.
+
+    `moving`/`fixed` are the SAMPLING sources: the target sets under a
+    per-lane mask [L, N] (the candidate's ROI).  `moving_targets`/
+    `fixed_targets` are the match TARGET sets the Voronoi maps index into
+    (itkLocationRegistration.cxx:1645-1650), and `fixed_grid`/`moving_grid`
+    their baked NN-row grids (`bake_target_grid`), or None for a map above
+    `FUSED_GRID_MAX_VOXELS`: matching then goes through the bare index map
+    (no grid is baked per call, which would sweep the whole map).
+
+    `model` is "affine" (12 dof, kernel K1) or "rigid" (6-dof small-angle
+    increments, BASELINE config 3); sampling, robust weighting, convergence
+    and the doubling schedule are the same.  Iteration 0 (with the MUSE
+    scale) is peeled off and runs on every lane; then each doubling level
+    runs with its static capacity, reading "any lane active" back every
+    ITERATIONS_PER_CHECK iterations.  `progress_callback(iteration,
+    weighted_error, number_matches)` is called with Python numbers once for
+    every iteration a lane runs (the reference's per-iteration display
+    callback, cdcl_estimation_abs.h:50-55): an observability tool, one
+    device read an iteration.
+
+    `mesh` (`parallel.distributed.Mesh`, with `match_axis` naming one of its
+    axes) splits the match axis of every lane over the ranks of that axis
+    (match-parallel estimation; module docstring).  Every rank passes the
+    same arguments and gets the same result, equal to the one-process run up
+    to the order of the sums.  With a callback or a mesh every iteration is
+    read back (the callback reads each; the mesh's exchanges stay eager)."""
+    r = Refinement(
+        moving, fixed, fixed_vor, moving_vor, cfg, draws, moving_targets=moving_targets,
+        fixed_targets=fixed_targets, fixed_grid=fixed_grid, moving_grid=moving_grid,
+        model=model, mesh=mesh, match_axis=match_axis,
+    )
+    if progress_callback is None and mesh is None:
+        return r.finish(r.levels(r.start(init)))
+
     def report(active: torch.Tensor, before: _Carry, after: _Carry) -> None:
+        if progress_callback is None:
+            return
         for lane in torch.nonzero(active)[:, 0].tolist():
             progress_callback(
                 int(before.iteration[lane]), float(after.weighted_error[lane]),
                 int(before.number_matches[lane]),
             )
 
-    caps = _staged_caps(cfg)
-    c = make_body(caps[0], True, c0)
-    if progress_callback is not None:
-        report(c0.valid, c0, c)
-    for k, cap in enumerate(caps):
-        last = k == len(caps) - 1
+    c0 = r.initial(init)
+    c = r.body(r.caps[0], True, c0)
+    report(c0.valid, c0, c)
+    for k, cap in enumerate(r.caps):
         while True:
-            active = cond(c)
-            if not last:
-                active = active & (c.number_matches <= cap)
+            active = r.active(c, k)
             if not bool(active.any()):
                 break
-            new = make_body(cap, False, c)
-            if progress_callback is not None:
-                report(active, c, new)
+            new = r.body(cap, False, c)
+            report(active, c, new)
             c = _where(active, new, c)
-
-    # final angle statistics from one full-payload weighted pass at the final
-    # transform (the JAX package solves the system here too and discards it;
-    # only the weights are used, so only the weighting runs)
-    wide_m = _pack_features_wide(moving_targets)
-    wide_f = _pack_features_wide(fixed_targets)
-    inv = c.trans.inverse()
-    fwd_s = _sample_stats_packed(
-        draws.stats_offset_f, src_m.order, n_valid_m, wide_m, wide_f, fixed_vor,
-        c.trans, c.number_matches, cfg.max_matches, mx,
-    )
-    bwd_s = _sample_stats_packed(
-        draws.stats_offset_b, src_f.order, n_valid_f, wide_f, wide_m, moving_vor,
-        inv, c.number_matches, cfg.max_matches, mx,
-    )
-    fwd_pm = _as_packed_matches(fwd_s)
-    fwd_w, bwd_w, *_ = _weighted_matches_packed(
-        c.trans, fwd_pm, _as_packed_matches(bwd_s), False, cfg, mx
-    )
-    sheet_f, tube_f = _angle_stats_packed(c.trans, fwd_s, fwd_w.weight, mx)
-    sheet_b, tube_b = _angle_stats_packed(inv, bwd_s, bwd_w.weight, mx)
-    final_rms = _feature_rms_packed(c.trans, fwd_pm, mx)
-
-    return ICPResult(
-        trans=c.trans, covar=c.covar, converged=c.converged, valid=c.valid,
-        oscillated=c.oscillation_count > cfg.max_oscillations,
-        iterations=c.iteration, weighted_error=c.weighted_error,
-        weighted_error_backward=c.we_bwd, sheet_angles=sheet_f, tube_angles=tube_f,
-        sheet_angles_backward=sheet_b, tube_angles_backward=tube_b,
-        number_matches=c.number_matches, initial_rms=c.initial_rms,
-        final_rms=final_rms,
-    )
+    return r.finish(c)

@@ -12,6 +12,7 @@ import dataclasses
 
 import torch
 
+from lrr_tpu_torch.ops import kernels
 from lrr_tpu_torch.ops.eig3 import eigvalsh3
 from lrr_tpu_torch.types import resolve_device
 
@@ -224,16 +225,10 @@ def normal_equations_terms(trans: Affine3D, from_xyz, to_xyz, projector, weight)
 
 
 def pinv_hermitian(a: torch.Tensor) -> torch.Tensor:
-    """`jnp.linalg.pinv(a, hermitian=True)`: cut at rcond = 10 * max(M, N) *
-    eps of the largest |eigenvalue| (torch's default rtol is 10x smaller).
-    A matrix with a non-finite entry gives all-NaN, as in JAX, without
-    reaching the eigensolver (which may raise on it where JAX does not)."""
-    rtol = 10 * max(a.shape[-2:]) * torch.finfo(a.dtype).eps
-    finite = torch.isfinite(a).flatten(-2).all(-1)[..., None, None]
-    out = torch.linalg.pinv(
-        torch.where(finite, a, torch.zeros_like(a)), hermitian=True, rtol=rtol
-    )
-    return torch.where(finite, out, torch.full_like(out, torch.nan))
+    """`jnp.linalg.pinv(a, hermitian=True)` of [..., n, n] float32, n <= 12:
+    kernel K3 on the card (no host round trip, so a CUDA graph can capture
+    it), its plain version `kernels.pinv_hermitian_plain` on the CPU."""
+    return kernels.pinv_hermitian_small(a)
 
 
 def solve_normal_equations(AtA, Atb, center, ridge: float = 0.0):

@@ -1,4 +1,4 @@
-"""The port's two hand-written Hopper kernels and their plain versions.
+"""The port's hand-written Hopper kernels and their plain versions.
 
   K1 `normal_equations_sym` — the summed weighted Gauss-Newton system of the
      affine ICP over both match directions, with the coordinate
@@ -8,12 +8,17 @@
      work XLA fused around it); source csrc/normal_equations.cu.
   K2 `knn` — exact k-NN by squared L2 with a running top-k (replaces
      lrr_tpu/ops/pallas_kernels.py::knn_pallas); source csrc/knn.cu.
+  K3 `pinv_hermitian_small` — the pseudo-inverse of a batch of symmetric
+     n x n matrices, n <= 12, by float64 Jacobi with no host round trip (no
+     Pallas counterpart: lrr_tpu leaves the ICP's solve to XLA's
+     eigensolver inside its wave program); source csrc/pinv_sym.cu.
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  `LAUNCHES` counts kernel
 launches (never plain-version calls) so a run can show that its path went
 through the kernels; `K1_SHAPES` and `K2_SHAPES` log which shapes they were
-launched at.
+launched at, `PINV_SHAPES` K3's.  These are Python counters: a replayed
+CUDA graph moves them through `add_counts` (pipeline/wave_graph.py).
 """
 
 from __future__ import annotations
@@ -26,9 +31,11 @@ from lrr_tpu_torch.ops import native
 
 KMAX = 128  # largest k the k-NN kernel keeps (the TPU kernel's lane width)
 
-LAUNCHES = {"normal_equations": 0, "knn": 0}
+LAUNCHES = {"normal_equations": 0, "knn": 0, "pinv_sym": 0}
 K1_SHAPES: dict[tuple[int, int, int], int] = {}  # (L, M_f, M_b) -> launches
 K2_SHAPES: dict[tuple[int, int, int, int], int] = {}  # (Q, N, D, k) -> launches
+PINV_SHAPES: dict[tuple[int, int], int] = {}  # (L, n) -> launches
+PINV_MAX_N = 12  # the largest matrix K3 takes
 
 
 def reset_launch_counts() -> None:
@@ -36,6 +43,28 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
     K1_SHAPES.clear()
     K2_SHAPES.clear()
+    PINV_SHAPES.clear()
+
+
+def counts() -> tuple[dict, ...]:
+    """A copy of every counter: (LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES)."""
+    return tuple(dict(c) for c in (LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES))
+
+
+def counts_since(before: tuple[dict, ...]) -> tuple[dict, ...]:
+    """What every counter gained since `before` (a `counts()`)."""
+    return tuple({k: v - b.get(k, 0) for k, v in now.items() if v != b.get(k, 0)}
+                 for now, b in zip(counts(), before))
+
+
+def add_counts(delta: tuple[dict, ...], times: int = 1) -> None:
+    """Add `times` x a `counts_since` delta to the counters (a shape whose
+    count comes to 0 leaves its log)."""
+    for counter, d in zip((LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES), delta):
+        for k, v in d.items():
+            counter[k] = counter.get(k, 0) + times * v
+            if counter[k] == 0 and counter is not LAUNCHES:
+                del counter[k]
 
 
 def _check_cuda(name: str, dtype, device, *tensors, contiguous: bool = True) -> None:
@@ -268,3 +297,56 @@ def knn(
         LAUNCHES["knn"] += 1
         K2_SHAPES[(Q, N, D, k)] = K2_SHAPES.get((Q, N, D, k), 0) + 1
     return d, i
+
+
+# ---------------------------------------------------------------------------
+# K3: small symmetric pseudo-inverse
+# ---------------------------------------------------------------------------
+
+
+def pinv_hermitian_plain(a: torch.Tensor) -> torch.Tensor:
+    """`jnp.linalg.pinv(a, hermitian=True)`: cut at rcond = 10 * max(M, N) *
+    eps of the largest |eigenvalue| (torch's default rtol is 10x smaller).
+    A matrix with a non-finite entry gives all-NaN, as in JAX, without
+    reaching the eigensolver (which may raise on it where JAX does not)."""
+    rtol = 10 * max(a.shape[-2:]) * torch.finfo(a.dtype).eps
+    finite = torch.isfinite(a).flatten(-2).all(-1)[..., None, None]
+    out = torch.linalg.pinv(
+        torch.where(finite, a, torch.zeros_like(a)), hermitian=True, rtol=rtol
+    )
+    return torch.where(finite, out, torch.full_like(out, torch.nan))
+
+
+def pinv_hermitian_small(a: torch.Tensor, rotations: torch.Tensor | None = None) -> torch.Tensor:
+    """K3.  `pinv_hermitian_plain` of float32 [..., n, n], n <= 12, reading
+    the lower triangle; the Jacobi sweeps run in float64 and the result is
+    rounded once.  With `rotations` (int32, one entry a matrix) the kernel
+    also writes how many rotations each matrix took (for the bound)."""
+    if a.device.type == "cpu":
+        return pinv_hermitian_plain(a)
+    if a.device.type != "cuda":
+        raise ValueError(f"pinv_hermitian_small: unsupported device {a.device}")
+    n = a.shape[-1]
+    if a.dim() < 2 or a.shape[-2] != n or not 1 <= n <= PINV_MAX_N:
+        raise ValueError(f"pinv_hermitian_small: shape {tuple(a.shape)}, want [..., n, n], "
+                         f"n <= {PINV_MAX_N}")
+    flat = a.reshape(-1, n, n).contiguous()
+    L = flat.shape[0]
+    _check_cuda("pinv_hermitian_small", torch.float32, a.device, flat)
+    out = torch.empty_like(flat)
+    if rotations is not None:
+        _check_cuda("pinv_hermitian_small", torch.int32, a.device, rotations)
+        if rotations.shape != (L,):
+            raise ValueError(f"pinv_hermitian_small: rotations {tuple(rotations.shape)}, want {(L,)}")
+    if L > 0:
+        rtol = 10 * n * torch.finfo(torch.float32).eps
+        native.check(
+            native.library().lrr_pinv_sym(
+                flat.data_ptr(), out.data_ptr(), 0 if rotations is None else rotations.data_ptr(),
+                L, n, rtol, torch.cuda.current_stream(a.device).cuda_stream,
+            ),
+            "pinv_hermitian_small",
+        )
+        LAUNCHES["pinv_sym"] += 1
+        PINV_SHAPES[(L, n)] = PINV_SHAPES.get((L, n), 0) + 1
+    return out.reshape(a.shape)

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "lrr_knn": [_P] * 7 + [_I] * 6 + [_P],
     # D, k, wide tiles (0/1) -> shared-memory bytes of one K2 block
     "lrr_knn_smem_bytes": [_I, _I, _I],
+    # a, out, rotations (or null), L, n, rtol, stream
+    "lrr_pinv_sym": [_P, _P, _P, _I, _I, ctypes.c_double, _P],
     # stream: an empty kernel, for the launch floor
     "lrr_empty": [_P],
 }

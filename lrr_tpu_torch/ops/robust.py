@@ -6,6 +6,7 @@ along the last dim, and padded entries never contaminate them.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -102,19 +103,30 @@ def linspace_f32(start: float, stop: float, num: int, device=None) -> torch.Tens
     reference computes it on the CPU: start*(1 - i*r) + i*(stop*r) with the
     reciprocal r = 1/div folded and the last product fused (XLA's
     rewrite), then the exact endpoint.  MUSE truncates these fractions
-    times n to integers, so an ulp here can move an order statistic."""
+    times n to integers, so an ulp here can move an order statistic.
+
+    Every tensor is made on `device` (IEEE float32 / float64 operations
+    there give the CPU's bits), so no host value is copied inside a CUDA
+    graph; the result is built once per (start, stop, num, device) and
+    shared, so it must not be written to."""
+    return _linspace_f32(float(start), float(stop), int(num), torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _linspace_f32(start: float, stop: float, num: int, device: torch.device) -> torch.Tensor:
     f32, f64 = torch.float32, torch.float64
+    s = torch.full((1,), start, dtype=f32, device=device)
     if num == 1:
-        return torch.tensor([start], dtype=f32, device=device)
+        return s
+    e = torch.full((1,), stop, dtype=f32, device=device)
     div = num - 1
     it = torch.arange(div, dtype=f32, device=device)
-    r = torch.tensor(1.0, dtype=f32) / torch.tensor(float(div), dtype=f32)
-    s = torch.tensor(start, dtype=f32, device=device)
-    e = torch.tensor(stop, dtype=f32, device=device)
-    er = (e * r.to(device)).to(f64)
-    head = (s * (1.0 - it * r.to(device))).to(f64)
+    r = torch.full((), 1.0, dtype=f32, device=device) / torch.full(
+        (), float(div), dtype=f32, device=device)
+    er = (e * r).to(f64)
+    head = (s * (1.0 - it * r)).to(f64)
     out = (it.to(f64) * er + head).to(f32)
-    return torch.cat([out, e[None]])
+    return torch.cat([out, e])
 
 
 def muse_scale(

@@ -43,6 +43,7 @@ from lrr_tpu_torch.estimation.icp import (
     _residual2_packed,
     _sample_stats_packed,
     _source_permutation,
+    Refinement,
     register_candidate,
 )
 from lrr_tpu_torch.estimation.measurements import (
@@ -61,6 +62,7 @@ from lrr_tpu_torch.ops.robust import nanmedian
 from lrr_tpu_torch.ops.voronoi import build_feature_voronoi
 from lrr_tpu_torch.ops.watershed import watershed_segmentation
 from lrr_tpu_torch.parallel.distributed import all_gather, gather_rows
+from lrr_tpu_torch.pipeline import wave_graph
 from lrr_tpu_torch.pipeline.regions import compact_feature_labels, select_features_by_labels
 from lrr_tpu_torch.sampling import SamplingPlan
 from lrr_tpu_torch.types import DescriptorSet, FeatureSet, Volume, no_tf32
@@ -265,30 +267,24 @@ def _candidate_initial_angle(
     return ang / (math.pi / 4.0) + med_res / 4.5
 
 
-def _refine_candidate(
-    ctx: PairContext, init: Affine3D, m_sel, f_sel, moving_lo, fixed_lo,
-    cfg: PipelineConfig, plan: SamplingPlan,
-) -> tuple[ICPResult, torch.Tensor]:
-    """ICP refinement + decision measurements for L candidates.  Sampling
-    sources are the ROI subsets; match targets are the full sets
-    (itkLocationRegistration.cxx:1645-1650)."""
+def _roi_sets(ctx: PairContext, m_sel: torch.Tensor, f_sel: torch.Tensor):
+    """The sampling sources of L candidates: the full sets under their ROI
+    masks."""
+    return (dataclasses.replace(ctx.moving_features, mask=m_sel),
+            dataclasses.replace(ctx.fixed_features, mask=f_sel))
+
+
+def _measure(ctx: PairContext, res: ICPResult, moving_roi, fixed_roi, moving_lo, fixed_lo,
+             cfg: PipelineConfig, plan: SamplingPlan) -> torch.Tensor:
+    """Backward covariance and the 8 decision measurements of refined lanes."""
     ecfg = cfg.estimation
-    moving_roi = dataclasses.replace(ctx.moving_features, mask=m_sel)
-    fixed_roi = dataclasses.replace(ctx.fixed_features, mask=f_sel)
-    res = register_candidate(
-        moving_roi, fixed_roi, ctx.fixed_vor, ctx.moving_vor, init, ecfg,
-        plan.icp(),
-        moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
-        fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid,
-    )
     cov_b = backward_covariance(
         res, moving_roi, fixed_roi, ctx.fixed_vor, ctx.moving_vor, ecfg,
         plan.covariance(),
         moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
         fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid,
     )
-    meas = decision_measurements(res, cov_b, moving_lo, fixed_lo, ecfg.roi_mm)
-    return res, meas
+    return decision_measurements(res, cov_b, moving_lo, fixed_lo, ecfg.roi_mm)
 
 
 def _pass1_fn(ctx: PairContext, queries: torch.Tensor, cfg, plan: SamplingPlan):
@@ -322,17 +318,50 @@ def _pass1_fn(ctx: PairContext, queries: torch.Tensor, cfg, plan: SamplingPlan):
     return cands.mask, inits, angles, enough, qm.reshape(Q, C, 3), rank, kp_m, kp_f
 
 
-def _wave_fn(ctx, queries, cfg, svm, inits: Affine3D, plan: SamplingPlan, lanes, cand_idx):
-    """Refine one (query, candidate) pair per lane (a PASS-2 wave)."""
+def _wave_inputs(queries, inits: Affine3D, plan: SamplingPlan, lanes, cand_idx):
+    """A wave's per-lane inputs: each lane's query [L, 3], initial transform
+    [L] and plan rows [L] (new tensors, gathered)."""
     init = Affine3D(
         inits.A[lanes, cand_idx], inits.t[lanes, cand_idx], inits.center[lanes, cand_idx]
     )
-    m_sel, f_sel, mlo, flo, _, _ = _candidate_rois(ctx, init, queries[lanes], cfg)
-    res, meas = _refine_candidate(
-        ctx, init, m_sel, f_sel, mlo, flo, cfg, plan.select(lanes, cand_idx)
+    return queries[lanes], init, plan.select(lanes, cand_idx)
+
+
+def _wave_prologue(ctx: PairContext, cfg: PipelineConfig, query, init: Affine3D,
+                   plan: SamplingPlan):
+    """A wave up to its ICP levels: the ROIs, the sampling sources and
+    iteration 0 with the MUSE scale.  Sampling sources are the ROI subsets;
+    match targets are the full sets (itkLocationRegistration.cxx:1645-1650).
+    Returns (refinement, carry, rois)."""
+    m_sel, f_sel, mlo, flo, _, _ = _candidate_rois(ctx, init, query, cfg)
+    moving_roi, fixed_roi = _roi_sets(ctx, m_sel, f_sel)
+    refinement = Refinement(
+        moving_roi, fixed_roi, ctx.fixed_vor, ctx.moving_vor, cfg.estimation, plan.icp(),
+        moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
+        fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid,
     )
-    probs = predict_probability(svm, scale_measurements(meas))
-    return res, meas, probs
+    return refinement, refinement.start(init), (moving_roi, fixed_roi, mlo, flo)
+
+
+def _wave_epilogue(ctx: PairContext, cfg: PipelineConfig, svm: SvmModel,
+                   refinement: Refinement, carry, rois, plan: SamplingPlan) -> torch.Tensor:
+    """A wave after its ICP levels: the final statistics, the decision
+    measurements and the SVM, packed into rows [L, 173]."""
+    res = refinement.finish(carry)
+    meas = _measure(ctx, res, *rois, cfg, plan)
+    return _pack_wave(res, meas, predict_probability(svm, scale_measurements(meas)))
+
+
+def _wave_fn(ctx, queries, cfg, svm, inits: Affine3D, plan: SamplingPlan, lanes, cand_idx):
+    """Refine one (query, candidate) pair per lane (a PASS-2 wave): the
+    packed rows [L, 173].  `WAVE_STEPS` run eagerly, the ICP's levels between
+    prologue and epilogue; `wave_graph` captures the same steps."""
+    query, init, plan = _wave_inputs(queries, inits, plan, lanes, cand_idx)
+    refinement, carry, rois = _wave_prologue(ctx, cfg, query, init, plan)
+    return _wave_epilogue(ctx, cfg, svm, refinement, refinement.levels(carry), rois, plan)
+
+
+WAVE_STEPS = wave_graph.WaveSteps(_wave_inputs, _wave_prologue, _wave_epilogue)
 
 
 # a wave's results travel as one float32 row a lane: (name, width)
@@ -354,7 +383,9 @@ def _pack_wave(res: ICPResult, meas: torch.Tensor, probs: torch.Tensor) -> torch
     return torch.cat([cols[name].reshape(L, -1).to(torch.float32) for name, _ in _WAVE_FIELDS], 1)
 
 
-def _unpack_wave(rows: np.ndarray) -> dict[str, np.ndarray]:
+def _unpack_wave(rows):
+    """`_pack_wave`'s fields of rows [L, 173] (numpy or torch: slices,
+    reshapes and compares only)."""
     out, col = {}, 0
     for name, width in _WAVE_FIELDS:
         part = rows[:, col : col + width]
@@ -376,6 +407,49 @@ def _pad_queries(queries: torch.Tensor, plan: SamplingPlan, n: int):
         return queries, plan
     rows = torch.cat([torch.arange(Q0), torch.zeros(pad, dtype=torch.long)])
     return queries[rows.to(queries.device)], plan.take(rows.to(plan.rank_offset.device))
+
+
+def pad_bucket(m: int, n: int = 1) -> int:
+    """Lanes a wave of `m` (lane, candidate) pairs runs at over `n` ranks:
+    lrr_tpu's `pad_lanes` (lrr_tpu/pipeline/registration.py:690-701), a
+    power of two of at least 8, rounded to a multiple of `n`, so that only
+    O(log Q) wave shapes, and so captured graphs, ever exist."""
+    bucket = max(8, 1 << (max(m, 1) - 1).bit_length())
+    bucket = max(bucket, n) // n * n
+    if bucket < m:
+        bucket = -(-m // n) * n
+    return bucket
+
+
+def pad_lanes(lanes: torch.Tensor, cand_idx: torch.Tensor, n: int = 1):
+    """A wave's (lane, candidate) pairs padded to `pad_bucket` by repeating
+    the first pair (the padded lanes' results are dropped)."""
+    pad = pad_bucket(lanes.numel(), n) - lanes.numel()
+    return (torch.cat([lanes, lanes[:1].expand(pad)]),
+            torch.cat([cand_idx, cand_idx[:1].expand(pad)]))
+
+
+def _wave_runner(ctx: PairContext, cfg: PipelineConfig, svm: SvmModel, mesh=None):
+    """How an entry point's waves run: run(queries, inits, plan, lanes,
+    cand_idx) -> the packed rows [B, 173] of the B lanes, on the context's
+    device.  On the card without a mesh, from captured CUDA graphs
+    (`pipeline/wave_graph.py`, lrr_tpu's one program a wave); on the CPU,
+    and with a mesh (its exchanges stay eager), `_wave_fn` itself."""
+    if mesh is None and ctx.device.type == "cuda":
+        return wave_graph.wave_graphs(ctx, cfg, svm, WAVE_STEPS).run
+    return _eager_wave_runner(ctx, cfg, svm)
+
+
+def _eager_wave_runner(ctx: PairContext, cfg: PipelineConfig, svm: SvmModel, mesh=None):
+    """`_wave_runner`'s eager form: each wave through `_wave_fn` (on the
+    card, the graphs' oracle; it takes `mesh` so that it can stand in for
+    `_wave_runner`)."""
+    svm = svm.to(ctx.device)
+
+    def run(queries, inits, plan, lanes, cand_idx):
+        return _wave_fn(ctx, queries, cfg, svm, inits, plan, lanes, cand_idx)
+
+    return run
 
 
 def register_locations_staged(
@@ -419,7 +493,7 @@ def register_locations_staged(
     no_tf32()
     dev = ctx.device
     queries = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=dev))
-    svm = svm.to(dev)
+    run = _wave_runner(ctx, cfg, svm, mesh)
     Q0 = queries.shape[0]
     C = cfg.indexing.num_candidates
     n, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
@@ -434,20 +508,17 @@ def register_locations_staged(
     )
 
     def run_wave(lanes_np, cand_np):
-        """One dispatch: (lane, candidate) pairs padded to a multiple of the
-        rank count by repeating the first, this rank's block refined, every
-        block's results gathered on every rank as one host array."""
+        """One dispatch: (lane, candidate) pairs padded to their bucket
+        (`pad_bucket`) by repeating the first, this rank's block refined,
+        every block's results gathered on every rank as one host array of
+        the m real rows."""
         m = lanes_np.size
-        pad = (-m) % n
-        lanes_t = torch.as_tensor(np.concatenate([lanes_np, np.repeat(lanes_np[:1], pad)]),
-                                  device=dev)
-        cand_t = torch.as_tensor(np.concatenate([cand_np, np.repeat(cand_np[:1], pad)]),
-                                 device=dev)
-        mine = slice(r * ((m + pad) // n), (r + 1) * ((m + pad) // n))
-        res, meas, probs = _wave_fn(
-            ctx, queries, cfg, svm, inits, plan, lanes_t[mine], cand_t[mine]
-        )
-        return _unpack_wave(all_gather(mesh, _pack_wave(res, meas, probs))[:m].cpu().numpy())
+        lanes_t, cand_t = pad_lanes(torch.as_tensor(lanes_np, device=dev),
+                                    torch.as_tensor(cand_np, device=dev), n)
+        per_rank = lanes_t.numel() // n
+        mine = slice(r * per_rank, (r + 1) * per_rank)
+        rows = run(queries, inits, plan, lanes_t[mine], cand_t[mine])
+        return _unpack_wave(all_gather(mesh, rows)[:m].cpu().numpy())
 
     rank_h = rank.cpu().numpy()
     usable0 = (cmask & enough).cpu().numpy()
@@ -594,7 +665,7 @@ def register_locations(
     no_tf32()
     dev = ctx.device
     queries = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=dev))
-    svm = svm.to(dev)
+    run = _wave_runner(ctx, cfg, svm)
     Q = queries.shape[0]
     C = cfg.indexing.num_candidates
     cmask, inits, angles, enough, qm, _, kp_m, kp_f = _pass1_fn(ctx, queries, cfg, plan)
@@ -602,20 +673,14 @@ def register_locations(
     lanes = torch.arange(Q, device=dev).repeat_interleave(C)
     cands = torch.arange(C, device=dev).repeat(Q)
     step = max(lane_budget, 1)
-    parts = [
-        _wave_fn(ctx, queries, cfg, svm, inits, plan, lanes[i : i + step], cands[i : i + step])
-        for i in range(0, Q * C, step)
-    ]
+    rows = []
+    for i in range(0, Q * C, step):
+        m = min(step, Q * C - i)
+        rows.append(run(queries, inits, plan, *pad_lanes(lanes[i : i + m], cands[i : i + m]))[:m])
+    h = {k: v.reshape((Q, C) + v.shape[1:]) for k, v in _unpack_wave(torch.cat(rows)).items()}
 
-    def gather(get) -> torch.Tensor:
-        x = torch.cat([get(*part) for part in parts])
-        return x.reshape((Q, C) + x.shape[1:])
-
-    def res(name):
-        return gather(lambda r, m, p: getattr(r, name))
-
-    probs = gather(lambda r, m, p: p)
-    valid, oscillated = res("valid"), res("oscillated")
+    probs = h["probs"]
+    valid, oscillated = h["valid"], h["oscillated"]
     usable = cmask & enough & valid & ~oscillated
     verified = usable & (probs > cfg.verify.accept_probability)
     rank = torch.sort(
@@ -627,16 +692,13 @@ def register_locations(
         in_order.any(1), rank.gather(1, first[:, None])[:, 0], torch.full_like(first, -1)
     )
     return LocationResult(
-        trans=Affine3D(
-            A=gather(lambda r, m, p: r.trans.A), t=gather(lambda r, m, p: r.trans.t),
-            center=gather(lambda r, m, p: r.trans.center),
-        ),
-        covar=res("covar"), measurements=gather(lambda r, m, p: m), probability=probs,
-        verified=verified, converged=res("converged"), valid=valid, oscillated=oscillated,
+        trans=Affine3D(A=h["A"], t=h["t"], center=h["center"]),
+        covar=h["covar"], measurements=h["meas"], probability=probs,
+        verified=verified, converged=h["converged"], valid=valid, oscillated=oscillated,
         enough_features=enough, candidate_mask=cmask, initial_angle=angles, rank=rank,
         selected=selected, query_mapped=qm, refined=torch.ones_like(verified),
         keypoint_moving=kp_m, keypoint_fixed=kp_f,
-        initial_rms=res("initial_rms"), final_rms=res("final_rms"),
+        initial_rms=h["initial_rms"], final_rms=h["final_rms"],
     )
 
 
@@ -669,9 +731,7 @@ def _one_candidate(ctx, query, cfg, plan: SamplingPlan, candidate, inits: Affine
     cand = torch.as_tensor(candidate, device=ctx.device).reshape(1)
     init = Affine3D(inits.A[zero, cand], inits.t[zero, cand], inits.center[zero, cand])
     m_sel, f_sel, _, _, _, _ = _candidate_rois(ctx, init, query[None], cfg)
-    moving_roi = dataclasses.replace(ctx.moving_features, mask=m_sel)
-    fixed_roi = dataclasses.replace(ctx.fixed_features, mask=f_sel)
-    return init, moving_roi, fixed_roi, plan.select(zero, cand).icp()
+    return init, *_roi_sets(ctx, m_sel, f_sel), plan.select(zero, cand).icp()
 
 
 def register_location_rigid(

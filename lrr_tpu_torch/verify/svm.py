@@ -10,6 +10,7 @@ prediction.  `fit_rbf_classifier` trains the kernel-logistic stand-in;
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -51,10 +52,20 @@ def scale_measurements(
     fmin: np.ndarray = REFERENCE_FEATURE_MIN,
     fmax: np.ndarray = REFERENCE_FEATURE_MAX,
 ) -> torch.Tensor:
-    """Linear rescale to [-1, 1] (svm_interface.cpp:44-51), unclamped."""
-    fmin = torch.as_tensor(fmin, dtype=x.dtype, device=x.device)
-    fmax = torch.as_tensor(fmax, dtype=x.dtype, device=x.device)
+    """Linear rescale to [-1, 1] (svm_interface.cpp:44-51), unclamped.  The
+    ranges are made on x's device, so no host value is copied inside a CUDA
+    graph."""
+    fmin = _on_device(tuple(np.asarray(fmin, np.float64).tolist()), x.dtype, x.device)
+    fmax = _on_device(tuple(np.asarray(fmax, np.float64).tolist()), x.dtype, x.device)
     return -1.0 + 2.0 * (x - fmin) / (fmax - fmin)
+
+
+@functools.lru_cache(maxsize=None)
+def _on_device(values: tuple[float, ...], dtype, device) -> torch.Tensor:
+    """`values` as a tensor made on `device` by fills (no host-to-device
+    copy), built once per (values, dtype, device) and shared: never written
+    to."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device) for v in values])
 
 
 def decision_function(model: SvmModel, x: torch.Tensor) -> torch.Tensor:

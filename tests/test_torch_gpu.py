@@ -511,7 +511,7 @@ def test_stage_commands_take_the_card_by_default(cuda, tmp_path, capsys):
     assert kernels.LAUNCHES["knn"] == 1 and kernels.LAUNCHES["normal_equations"] > 0
     kernels.reset_launch_counts()
     cli.main(register + ["--out", p("on_cpu"), "--device", "cpu"])
-    assert kernels.LAUNCHES == {"normal_equations": 0, "knn": 0}
+    assert not any(kernels.LAUNCHES.values())
     for out in ("on_card", "on_cpu"):  # each device draws its own plan from the seed
         for t in range(2):
             with open(p(f"{out}/results{t:06d}.json")) as f:
@@ -905,3 +905,160 @@ def test_sol_gather_roofline_on_gpu(cuda):
         assert roof[key] == max(roof["gather_gb_s_by_op"][key].values())
     assert 0 < roof["window_copy_gb_s"] < sol.PEAK_HBM_GBS
     assert sol.measured_gather_roofline(cuda) is roof
+
+
+# ---------------------------------------------------------------------------
+# K3 (csrc/pinv_sym.cu) and the waves served from captured CUDA graphs
+# ---------------------------------------------------------------------------
+
+PINV_KAPPA = 1e3  # condition number of the synthetic batches
+PINV_TOL_PLAIN = 100 * PINV_KAPPA * 2**-23  # x max |entry|: float32 eigensolver error ~ kappa eps
+PINV_TOL_F64 = 1e-6  # x max |entry|: the kernel against float64 on the same inputs
+
+
+def _pinv_batch(rng, L, n, kind):
+    """[L, n, n] float32 symmetric: V diag(lam) V^T with |lam| spread over
+    PINV_KAPPA; "rank" zeroes two eigenvalues; "nonfinite" puts a NaN or an
+    inf into every third matrix."""
+    out = np.empty((L, n, n), np.float32)
+    for i in range(L):
+        v, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        lam = np.logspace(0, -np.log10(PINV_KAPPA), n) * 10.0 ** rng.uniform(-2, 2)
+        if kind == "rank":
+            lam[-2:] = 0.0
+        a = (v * lam) @ v.T
+        out[i] = (a + a.T) / 2
+    if kind == "nonfinite":
+        out[::3, 1, n - 1] = np.nan
+        out[1::3, 0, 0] = np.inf
+    return torch.tensor(out, device="cuda")
+
+
+def _pinv_f64(a: torch.Tensor) -> np.ndarray:
+    """The plain version's cut on the float32 input, solved in float64."""
+    x = a.double().cpu().numpy()
+    n = x.shape[-1]
+    w, v = np.linalg.eigh(x)
+    keep = np.abs(w) > 10 * n * 2**-23 * np.abs(w).max(-1, keepdims=True)
+    inv = np.where(keep, 1.0 / np.where(keep, w, 1.0), 0.0)
+    return (v * inv[:, None, :]) @ np.swapaxes(v, 1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["spd", "rank", "nonfinite"])
+@pytest.mark.parametrize("n", [4, 6, 12])
+@pytest.mark.parametrize("L", [1, 8, 24, 64])
+def test_pinv_kernel_matches_plain(cuda, L, n, kind):
+    rng = np.random.default_rng(L * 100 + n)
+    a = _pinv_batch(rng, L, n, kind)
+    n0 = kernels.LAUNCHES["pinv_sym"]
+    got = kernels.pinv_hermitian_small(a)
+    assert kernels.LAUNCHES["pinv_sym"] == n0 + 1 and kernels.PINV_SHAPES[(L, n)] >= 1
+    want = kernels.pinv_hermitian_plain(a)
+    bits = got.view(torch.int32)  # NaN-safe
+    assert torch.equal(bits, kernels.pinv_hermitian_small(a).view(torch.int32))  # same bits
+    assert torch.equal(bits, bits.transpose(1, 2))
+    bad = ~torch.isfinite(a).flatten(1).all(1)
+    assert bool(torch.isnan(got[bad]).all()) and bool(torch.isnan(want[bad]).all())
+    g, w = got[~bad], want[~bad]
+    if g.numel():
+        f64 = _pinv_f64(a[~bad])
+        scale = np.abs(f64).max()
+        assert np.abs(g.cpu().numpy() - f64).max() <= PINV_TOL_F64 * scale
+        assert float((g - w).abs().max()) <= PINV_TOL_PLAIN * float(w.abs().max())
+
+
+@pytest.mark.gpu
+def test_pinv_kernel_refuses_bad_inputs(cuda):
+    from lrr_tpu_torch.models.affine import pinv_hermitian
+
+    with pytest.raises(ValueError):
+        kernels.pinv_hermitian_small(torch.zeros(2, 13, 13, device=cuda))
+    with pytest.raises(ValueError):  # the port's solve: no plain version on the card
+        pinv_hermitian(torch.zeros(2, 13, 13, device=cuda))
+    with pytest.raises(ValueError):
+        kernels.pinv_hermitian_small(torch.zeros(2, 4, 4, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        kernels.pinv_hermitian_small(torch.zeros(2, 4, 5, device=cuda))
+
+
+def _bench(cuda):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    bench = os.path.join(root, "lrr_tpu_torch", "data", "bench_pair_s64")
+    with open(bench + ".json") as f:
+        meta = json.load(f)
+    cfg = pipeline_config_from_dict(meta["config"])
+    ctx = load_pair_context(bench + ".npz", cuda)
+    q = torch.tensor(meta["queries"], dtype=torch.float32, device=cuda)
+    plan = draw_sampling_plan(torch.Generator().manual_seed(3), len(q), cfg,
+                              ctx.moving_features.capacity, ctx.fixed_features.capacity, cuda)
+    return ctx, q, cfg, plan
+
+
+@pytest.mark.gpu
+def test_graph_waves_equal_eager_waves_on_the_card(cuda, monkeypatch):
+    """The bench context served from captured graphs and by the eager
+    `_wave_fn` (the oracle): the same bits in every field; K3 on both paths;
+    one host read a chunk."""
+    from lrr_tpu_torch.pipeline import registration, wave_graph
+
+    ctx, q, cfg, plan = _bench(cuda)
+    svm = load_default_verifier()
+    wave_graph.drop()
+    kernels.reset_launch_counts()
+    got = register_locations_staged(ctx, q, cfg, svm, plan)
+    again = register_locations_staged(ctx, q, cfg, svm, plan)  # replayed, nothing captured
+    st = wave_graph.stats()
+    assert kernels.LAUNCHES["pinv_sym"] > 0 and kernels.LAUNCHES["normal_equations"] > 0
+    assert st["waves"] >= 2 and st["syncs"] >= st["waves"]
+    assert st["replays"] == st["syncs"] + 2 * st["waves"]  # prologue + chunks + epilogue
+    with monkeypatch.context() as m:
+        m.setattr(registration, "_wave_runner", registration._eager_wave_runner)
+        kernels.reset_launch_counts()
+        want = register_locations_staged(ctx, q, cfg, svm, plan)
+        assert kernels.LAUNCHES["pinv_sym"] > 0
+    assert wave_graph.first_difference(got, want) is None
+    assert wave_graph.first_difference(again, want) is None
+    assert float((want.selected >= 0).float().mean()) >= 0.95
+
+    # every candidate refined: the last wave is ragged and padded to its bucket
+    small = load_pair_context(SMALL + ".npz", cuda)
+    with open(SMALL + ".json") as f:
+        meta = json.load(f)
+    scfg = pipeline_config_from_dict(meta["config"])
+    sq = torch.tensor(meta["queries"], dtype=torch.float32, device=cuda)
+    splan = draw_sampling_plan(torch.Generator().manual_seed(4), len(sq), scfg,
+                               small.moving_features.capacity, small.fixed_features.capacity,
+                               cuda)
+    got = registration.register_locations(small, sq, scfg, svm, splan, lane_budget=12)
+    with monkeypatch.context() as m:
+        m.setattr(registration, "_wave_runner", registration._eager_wave_runner)
+        want = registration.register_locations(small, sq, scfg, svm, splan, lane_budget=12)
+    assert wave_graph.first_difference(got, want) is None
+    wave_graph.drop()
+
+
+@pytest.mark.gpu
+def test_capture_runs_with_sync_errors(cuda):
+    """A bucket's graphs are built (warm-up and capture) with the sync debug
+    mode at "error", and that mode does raise on a host read."""
+    from lrr_tpu_torch.pipeline import wave_graph
+
+    with wave_graph._sync_errors():
+        assert torch.cuda.get_sync_debug_mode() == 2
+        with pytest.raises(RuntimeError):
+            torch.ones(1, device=cuda).item()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    ctx, q, cfg, plan = _bench(cuda)
+    svm = load_default_verifier()
+    wave_graph.drop()
+    from lrr_tpu_torch.pipeline.registration import WAVE_STEPS, _pass1_fn
+
+    graphs = wave_graph.wave_graphs(ctx, cfg, svm, WAVE_STEPS)
+
+    _, inits, *_ = _pass1_fn(ctx, q, cfg, plan)
+    lanes = torch.arange(8, device=cuda)
+    rows = graphs.run(q, inits, plan, lanes, torch.zeros_like(lanes))
+    assert rows.shape == (8, 173) and rows.dtype == torch.float32
+    assert list(wave_graph.stats()["build_s"]) == [8]
+    wave_graph.drop()

@@ -206,7 +206,9 @@ def test_max_unproductive_widens_the_waves():
     wave_fn = registration._wave_fn
 
     def counted(ctx, q, cfg, svm, inits, plan_, lanes, cand):
-        waves[-1].append(int(lanes.numel()))
+        # the (query, candidate) pairs refined: a wave is padded to its lane
+        # bucket by repeating its first pair
+        waves[-1].append(len(set(zip(lanes.tolist(), cand.tolist()))))
         return wave_fn(ctx, q, cfg, svm, inits, plan_, lanes, cand)
 
     registration._wave_fn = counted
