@@ -697,6 +697,20 @@ def _staged_caps(cfg: EstimationConfig) -> list[int]:
 # read each.
 ITERATIONS_PER_CHECK = 2
 
+# chunks of ITERATIONS_PER_CHECK masked iterations run so far: one a pass of
+# `Refinement.levels`' loop, one a chunk graph replayed (wave_graph.py adds
+# them, as it adds the kernels' counts).  A Python counter, read as a
+# difference around a wave.
+_CHUNKS = [0]
+
+
+def chunks_run() -> int:
+    return _CHUNKS[0]
+
+
+def add_chunks(n: int = 1) -> None:
+    _CHUNKS[0] += n
+
 
 class Refinement:
     """`register_candidate` cut into the parts a CUDA graph captures: the
@@ -828,6 +842,7 @@ class Refinement:
             while bool(self.active(c, k).any()):
                 for _ in range(ITERATIONS_PER_CHECK):
                     c = self.step(c, k)
+                add_chunks()
         return c
 
     def finish(self, c: _Carry) -> ICPResult:

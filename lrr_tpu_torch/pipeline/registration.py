@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from lrr_tpu_torch.config import PipelineConfig
+from lrr_tpu_torch.estimation import icp
 from lrr_tpu_torch.estimation.icp import (
     FUSED_GRID_MAX_VOXELS,
     ICPResult,
@@ -66,6 +67,7 @@ from lrr_tpu_torch.pipeline import wave_graph
 from lrr_tpu_torch.pipeline.regions import compact_feature_labels, select_features_by_labels
 from lrr_tpu_torch.sampling import SamplingPlan
 from lrr_tpu_torch.types import DescriptorSet, FeatureSet, Volume, no_tf32
+from lrr_tpu_torch.utils import timers
 from lrr_tpu_torch.verify.svm import SvmModel, predict_probability, scale_measurements
 
 @dataclasses.dataclass
@@ -109,12 +111,15 @@ def assemble_pair_context(
             return None
         return bake_target_grid(fs, vor)
 
+    with timers.span("stage1.nn_table"):
+        nn_table = descriptor_nn_table(ds_f, ds_m)
+    with timers.span("stage1.grids"):
+        fixed_grid, moving_grid = grid(fs_f, fv), grid(fs_m, mv)
     return PairContext(
         moving_features=fs_m, fixed_features=fs_f,
         moving_descriptors=ds_m, fixed_descriptors=ds_f,
         moving_vor=mv, fixed_vor=fv,
-        nn_table=descriptor_nn_table(ds_f, ds_m),
-        fixed_grid=grid(fs_f, fv), moving_grid=grid(fs_m, mv),
+        nn_table=nn_table, fixed_grid=fixed_grid, moving_grid=moving_grid,
     )
 
 
@@ -132,18 +137,34 @@ def prepare_pair(
     divides (`features.extract._dense_stage`), and each exact Voronoi build
     a z-slab a rank (`build_feature_voronoi`).  Everything else, K2's
     descriptor-NN table included, runs on every rank, which then all hold
-    the same context."""
+    the same context.
+
+    With the program's trace on (`utils.timers`) it records
+    `stage1.prepare_pair` around `stage1.features`, `stage1.keypoints`,
+    `stage1.descriptors` and `stage1.voronoi` a volume (attribute
+    `volume`), then `stage1.nn_table` and `stage1.grids`."""
     if moving.device != fixed.device:
         raise ValueError(f"prepare_pair: volumes on {moving.device} and {fixed.device}")
-    fs_m = detect_features(moving, cfg.features, mesh=mesh, axis_name=axis_name)
-    fs_f = detect_features(fixed, cfg.features, mesh=mesh, axis_name=axis_name)
-    kp_m = extract_keypoints(fs_m, cfg.keypoints)
-    kp_f = extract_keypoints(fs_f, cfg.keypoints)
-    ds_m = compute_descriptors(kp_m, fs_m, cfg.descriptors)
-    ds_f = compute_descriptors(kp_f, fs_f, cfg.descriptors)
-    mv = VoronoiGrid(*build_feature_voronoi(fs_m.xyz, fs_m.mask, mesh=mesh, axis_name=axis_name))
-    fv = VoronoiGrid(*build_feature_voronoi(fs_f.xyz, fs_f.mask, mesh=mesh, axis_name=axis_name))
-    return assemble_pair_context(fs_m, fs_f, ds_m, ds_f, mv, fv)
+    with timers.span("stage1.prepare_pair"):
+        with timers.span("stage1.features", volume="moving"):
+            fs_m = detect_features(moving, cfg.features, mesh=mesh, axis_name=axis_name)
+        with timers.span("stage1.features", volume="fixed"):
+            fs_f = detect_features(fixed, cfg.features, mesh=mesh, axis_name=axis_name)
+        with timers.span("stage1.keypoints", volume="moving"):
+            kp_m = extract_keypoints(fs_m, cfg.keypoints)
+        with timers.span("stage1.keypoints", volume="fixed"):
+            kp_f = extract_keypoints(fs_f, cfg.keypoints)
+        with timers.span("stage1.descriptors", volume="moving"):
+            ds_m = compute_descriptors(kp_m, fs_m, cfg.descriptors)
+        with timers.span("stage1.descriptors", volume="fixed"):
+            ds_f = compute_descriptors(kp_f, fs_f, cfg.descriptors)
+        with timers.span("stage1.voronoi", volume="moving"):
+            mv = VoronoiGrid(*build_feature_voronoi(fs_m.xyz, fs_m.mask, mesh=mesh,
+                                                    axis_name=axis_name))
+        with timers.span("stage1.voronoi", volume="fixed"):
+            fv = VoronoiGrid(*build_feature_voronoi(fs_f.xyz, fs_f.mask, mesh=mesh,
+                                                    axis_name=axis_name))
+        return assemble_pair_context(fs_m, fs_f, ds_m, ds_f, mv, fv)
 
 
 def attach_regions(ctx: PairContext, moving_labels: Volume, fixed_labels: Volume) -> PairContext:
@@ -151,23 +172,29 @@ def attach_regions(ctx: PairContext, moving_labels: Volume, fixed_labels: Volume
     per-feature compact region ids, gathered once here so the per-candidate
     work is capacity-sized (the reference reads the label volume and grows
     regions per candidate, itkLocationRegistration.cxx:657, 1363-1522)."""
-    ml = compact_feature_labels(
-        ctx.moving_features, moving_labels.data, moving_labels.origin, moving_labels.spacing
-    )
-    fl = compact_feature_labels(
-        ctx.fixed_features, fixed_labels.data, fixed_labels.origin, fixed_labels.spacing
-    )
+    with timers.span("stage1.regions"):
+        ml = compact_feature_labels(
+            ctx.moving_features, moving_labels.data, moving_labels.origin, moving_labels.spacing
+        )
+        fl = compact_feature_labels(
+            ctx.fixed_features, fixed_labels.data, fixed_labels.origin, fixed_labels.spacing
+        )
     return dataclasses.replace(ctx, moving_region_labels=ml, fixed_region_labels=fl)
 
 
 def segment_pair(moving: Volume, fixed: Volume, ctx: PairContext) -> PairContext:
     """Watershed oversegmentation (WatershedSegmentation1.cxx canonical
-    parameters) of both volumes, attached to the context."""
-    ml = watershed_segmentation(moving.data)
-    fl = watershed_segmentation(fixed.data)
-    return attach_regions(
-        ctx, Volume(ml, moving.origin, moving.spacing), Volume(fl, fixed.origin, fixed.spacing)
-    )
+    parameters) of both volumes, attached to the context.  Traced as
+    `stage1.segment_pair` around `stage1.watershed` a volume and
+    `stage1.regions`."""
+    with timers.span("stage1.segment_pair"):
+        with timers.span("stage1.watershed", volume="moving"):
+            ml = watershed_segmentation(moving.data)
+        with timers.span("stage1.watershed", volume="fixed"):
+            fl = watershed_segmentation(fixed.data)
+        return attach_regions(
+            ctx, Volume(ml, moving.origin, moving.spacing), Volume(fl, fixed.origin, fixed.spacing)
+        )
 
 
 @dataclasses.dataclass
@@ -346,7 +373,7 @@ def _wave_prologue(ctx: PairContext, cfg: PipelineConfig, query, init: Affine3D,
 def _wave_epilogue(ctx: PairContext, cfg: PipelineConfig, svm: SvmModel,
                    refinement: Refinement, carry, rois, plan: SamplingPlan) -> torch.Tensor:
     """A wave after its ICP levels: the final statistics, the decision
-    measurements and the SVM, packed into rows [L, 173]."""
+    measurements and the SVM, packed into rows [L, 174]."""
     res = refinement.finish(carry)
     meas = _measure(ctx, res, *rois, cfg, plan)
     return _pack_wave(res, meas, predict_probability(svm, scale_measurements(meas)))
@@ -354,7 +381,7 @@ def _wave_epilogue(ctx: PairContext, cfg: PipelineConfig, svm: SvmModel,
 
 def _wave_fn(ctx, queries, cfg, svm, inits: Affine3D, plan: SamplingPlan, lanes, cand_idx):
     """Refine one (query, candidate) pair per lane (a PASS-2 wave): the
-    packed rows [L, 173].  `WAVE_STEPS` run eagerly, the ICP's levels between
+    packed rows [L, 174].  `WAVE_STEPS` run eagerly, the ICP's levels between
     prologue and epilogue; `wave_graph` captures the same steps."""
     query, init, plan = _wave_inputs(queries, inits, plan, lanes, cand_idx)
     refinement, carry, rois = _wave_prologue(ctx, cfg, query, init, plan)
@@ -368,23 +395,25 @@ WAVE_STEPS = wave_graph.WaveSteps(_wave_inputs, _wave_prologue, _wave_epilogue)
 _WAVE_FIELDS = (
     ("A", 9), ("t", 3), ("center", 3), ("covar", 144), ("meas", 8), ("probs", 1),
     ("valid", 1), ("oscillated", 1), ("converged", 1), ("initial_rms", 1), ("final_rms", 1),
+    ("iterations", 1),
 )
 
 
 def _pack_wave(res: ICPResult, meas: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
-    """[L, 173] float32: every per-lane output a wave hands to the host
-    (booleans as 0 / 1, exact)."""
+    """[L, 174] float32: every per-lane output a wave hands to the host
+    (booleans as 0 / 1 and the iterations a lane ran, exact)."""
     cols = {
         "A": res.trans.A, "t": res.trans.t, "center": res.trans.center, "covar": res.covar,
         "meas": meas, "probs": probs, "valid": res.valid, "oscillated": res.oscillated,
         "converged": res.converged, "initial_rms": res.initial_rms, "final_rms": res.final_rms,
+        "iterations": res.iterations,
     }
     L = probs.shape[0]
     return torch.cat([cols[name].reshape(L, -1).to(torch.float32) for name, _ in _WAVE_FIELDS], 1)
 
 
 def _unpack_wave(rows):
-    """`_pack_wave`'s fields of rows [L, 173] (numpy or torch: slices,
+    """`_pack_wave`'s fields of rows [L, 174] (numpy or torch: slices,
     reshapes and compares only)."""
     out, col = {}, 0
     for name, width in _WAVE_FIELDS:
@@ -431,7 +460,7 @@ def pad_lanes(lanes: torch.Tensor, cand_idx: torch.Tensor, n: int = 1):
 
 def _wave_runner(ctx: PairContext, cfg: PipelineConfig, svm: SvmModel, mesh=None):
     """How an entry point's waves run: run(queries, inits, plan, lanes,
-    cand_idx) -> the packed rows [B, 173] of the B lanes, on the context's
+    cand_idx) -> the packed rows [B, 174] of the B lanes, on the context's
     device.  On the card without a mesh, from captured CUDA graphs
     (`pipeline/wave_graph.py`, lrr_tpu's one program a wave); on the CPU,
     and with a mesh (its exchanges stay eager), `_wave_fn` itself."""
@@ -489,10 +518,30 @@ def register_locations_staged(
     the whole budget), PASS 1 runs a block of queries a rank and each wave
     (padded the same way) a block of lanes a rank, and one all-gather a
     dispatch gives every rank every result.  The host bookkeeping then runs
-    on the same data on every rank, so the ranks stay in lockstep."""
+    on the same data on every rank, so the ranks stay in lockstep.
+
+    With the program's trace on (`utils.timers`) it records `staged`
+    (attributes `queries`, `candidates`) around `staged.pass1` (PASS 1 up to
+    the host's copies of the ranks and the gate), a `staged.wave` a dispatch
+    (attributes `bucket`, `lanes`) and `staged.result`; the host bookkeeping
+    between them is `staged`'s own time.  The counters `icp.lane_iterations`
+    (the iterations this rank's real lanes ran, iteration 0 included) and
+    `icp.lane_slots` (the iterations the waves' loops gave those lanes room
+    for: 1 + `ITERATIONS_PER_CHECK` a chunk run) measure how full the masked
+    iterations are."""
     no_tf32()
     dev = ctx.device
     queries = torch.atleast_2d(torch.as_tensor(queries, dtype=torch.float32, device=dev))
+    C = cfg.indexing.num_candidates
+    with timers.span("staged", queries=queries.shape[0], candidates=C):
+        return _staged(ctx, queries, cfg, svm, plan, lane_budget, accept_override,
+                       max_unproductive, mesh)
+
+
+def _staged(ctx, queries, cfg, svm, plan, lane_budget, accept_override, max_unproductive,
+            mesh) -> LocationResult:
+    """`register_locations_staged` on queries [Q, 3] on the context's device."""
+    dev = ctx.device
     run = _wave_runner(ctx, cfg, svm, mesh)
     Q0 = queries.shape[0]
     C = cfg.indexing.num_candidates
@@ -503,9 +552,12 @@ def register_locations_staged(
     budget = lane_budget * n
     k0 = max(1, min(C, budget // max(Q, 1)))
     block = slice(r * (Q // n), (r + 1) * (Q // n))
-    cmask, inits, angles, enough, qm, rank, kp_m, kp_f = gather_rows(
-        mesh, _pass1_fn(ctx, queries[block], cfg, plan.take(block))
-    )
+    with timers.span("staged.pass1"):
+        cmask, inits, angles, enough, qm, rank, kp_m, kp_f = gather_rows(
+            mesh, _pass1_fn(ctx, queries[block], cfg, plan.take(block))
+        )
+        rank_h = rank.cpu().numpy()
+        usable0 = (cmask & enough).cpu().numpy()
 
     def run_wave(lanes_np, cand_np):
         """One dispatch: (lane, candidate) pairs padded to their bucket
@@ -513,15 +565,22 @@ def register_locations_staged(
         every block's results gathered on every rank as one host array of
         the m real rows."""
         m = lanes_np.size
-        lanes_t, cand_t = pad_lanes(torch.as_tensor(lanes_np, device=dev),
-                                    torch.as_tensor(cand_np, device=dev), n)
-        per_rank = lanes_t.numel() // n
-        mine = slice(r * per_rank, (r + 1) * per_rank)
-        rows = run(queries, inits, plan, lanes_t[mine], cand_t[mine])
-        return _unpack_wave(all_gather(mesh, rows)[:m].cpu().numpy())
+        bucket = pad_bucket(m, n)
+        with timers.span("staged.wave", bucket=bucket, lanes=m):
+            lanes_t, cand_t = pad_lanes(torch.as_tensor(lanes_np, device=dev),
+                                        torch.as_tensor(cand_np, device=dev), n)
+            per_rank = lanes_t.numel() // n
+            mine = slice(r * per_rank, (r + 1) * per_rank)
+            chunks = icp.chunks_run()
+            rows = run(queries, inits, plan, lanes_t[mine], cand_t[mine])
+            h = _unpack_wave(all_gather(mesh, rows)[:m].cpu().numpy())
+            if timers.enabled():  # this rank's real lanes
+                real = slice(mine.start, min(mine.stop, m))
+                timers.count("icp.lane_iterations", int(h["iterations"][real].sum()))
+                timers.count("icp.lane_slots", len(h["iterations"][real]) * (
+                    1 + icp.ITERATIONS_PER_CHECK * (icp.chunks_run() - chunks)))
+        return h
 
-    rank_h = rank.cpu().numpy()
-    usable0 = (cmask & enough).cpu().numpy()
     resolved = np.zeros(Q, bool)
     resolved[Q0:] = True  # padding queries never dispatch straggler waves
     selected = np.full(Q, -1, np.int64)
@@ -611,28 +670,29 @@ def register_locations_staged(
     def dev_t(x):
         return torch.as_tensor(x, device=dev)
 
-    out = LocationResult(
-        trans=Affine3D(A=dev_t(A), t=dev_t(t), center=dev_t(center)),
-        covar=dev_t(covar),
-        measurements=dev_t(meas_out),
-        probability=dev_t(probs_out),
-        verified=dev_t(verified_out),
-        converged=dev_t(converged_out),
-        valid=dev_t(valid_out),
-        oscillated=dev_t(oscillated_out),
-        enough_features=enough,
-        candidate_mask=cmask,
-        initial_angle=angles,
-        rank=rank,
-        selected=dev_t(selected),
-        query_mapped=qm,
-        refined=dev_t(refined_out),
-        keypoint_moving=kp_m,
-        keypoint_fixed=kp_f,
-        initial_rms=dev_t(initial_rms_out),
-        final_rms=dev_t(final_rms_out),
-    )
-    return out if Q == Q0 else result_at(out, slice(0, Q0))
+    with timers.span("staged.result"):
+        out = LocationResult(
+            trans=Affine3D(A=dev_t(A), t=dev_t(t), center=dev_t(center)),
+            covar=dev_t(covar),
+            measurements=dev_t(meas_out),
+            probability=dev_t(probs_out),
+            verified=dev_t(verified_out),
+            converged=dev_t(converged_out),
+            valid=dev_t(valid_out),
+            oscillated=dev_t(oscillated_out),
+            enough_features=enough,
+            candidate_mask=cmask,
+            initial_angle=angles,
+            rank=rank,
+            selected=dev_t(selected),
+            query_mapped=qm,
+            refined=dev_t(refined_out),
+            keypoint_moving=kp_m,
+            keypoint_fixed=kp_f,
+            initial_rms=dev_t(initial_rms_out),
+            final_rms=dev_t(final_rms_out),
+        )
+        return out if Q == Q0 else result_at(out, slice(0, Q0))
 
 
 def register_locations(

@@ -34,7 +34,14 @@ configuration and verifier); a wave on another context drops them.
 
 The kernel wrappers' counters are Python counters, which a replay does not
 move: each graph records what its capture counted, and every replay adds it
-(`kernels.add_counts`).
+(`kernels.add_counts`); a chunk replay adds one to `icp.chunks_run()`.
+
+With the program's trace on (`utils.timers`), a wave records `wave.inputs`
+(the lanes' inputs, copied into the bucket's), `wave.build` (a new bucket:
+`wave.build.warmup`, then a `wave.build.capture` a graph), `wave.replay` a
+graph launched (attribute `part`: prologue, chunk with its `level`,
+epilogue) and `wave.flags` a host read of the level flags.  `stats()` is
+where waves, replays, reads and build seconds are counted.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import torch
 
 from lrr_tpu_torch.estimation import icp
 from lrr_tpu_torch.ops import kernels
+from lrr_tpu_torch.utils import timers
 from lrr_tpu_torch.verify.svm import SvmModel
 
 
@@ -218,12 +226,13 @@ class WaveGraphs:
         return self.steps.epilogue(self.ctx, self.cfg, self.svm, b.refinement, b.carry, b.rois,
                                    b.inputs[2])
 
-    def _capture(self, fn) -> tuple[_Graph, object]:
+    def _capture(self, fn, **part) -> tuple[_Graph, object]:
         before = kernels.counts()
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, pool=self.pool, stream=self.stream):
-            with _sync_errors():
-                out = fn()
+        with timers.span("wave.build.capture", **part):
+            with torch.cuda.graph(g, pool=self.pool, stream=self.stream):
+                with _sync_errors():
+                    out = fn()
         launches = kernels.counts_since(before)
         kernels.add_counts(launches, -1)  # a capture launches nothing
         return _Graph(g, launches), out
@@ -235,43 +244,49 @@ class WaveGraphs:
                               device=self.ctx.device)
         levels = range(b.flags.numel())
         self.stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(self.stream), _sync_errors():  # warm-up, eagerly
+        with torch.cuda.stream(self.stream), _sync_errors(), timers.span("wave.build.warmup"):
             self._prologue(b)
             for k in levels:
                 self._chunk(b, k)
             self._epilogue(b)
         torch.cuda.current_stream().wait_stream(self.stream)
-        b.prologue, _ = self._capture(lambda: self._prologue(b))
-        b.chunks = [self._capture(lambda k=k: self._chunk(b, k))[0] for k in levels]
-        b.epilogue, b.out = self._capture(lambda: self._epilogue(b))
+        b.prologue, _ = self._capture(lambda: self._prologue(b), part="prologue")
+        b.chunks = [self._capture(lambda k=k: self._chunk(b, k), part="chunk", level=k)[0]
+                    for k in levels]
+        b.epilogue, b.out = self._capture(lambda: self._epilogue(b), part="epilogue")
         self.build_s[len(inputs[0])] = time.perf_counter() - t0
         return b
 
     def run(self, queries, inits, plan, lanes, cand_idx) -> torch.Tensor:
-        """The packed rows [B, 173] of one wave of B = len(lanes) lanes
+        """The packed rows [B, 174] of one wave of B = len(lanes) lanes
         (`registration._wave_fn`'s arguments but the context, configuration
         and verifier); a new tensor, so waves can be kept."""
         B = lanes.numel()
-        inputs = self.steps.inputs(queries, inits, plan, lanes, cand_idx)
-        b = self.buckets.get(B)
+        with timers.span("wave.inputs"):
+            inputs = self.steps.inputs(queries, inits, plan, lanes, cand_idx)
+            b = self.buckets.get(B)
+            if b is not None:
+                _copy_into(b.inputs, inputs)
         if b is None:
-            b = self.buckets[B] = self._build(inputs)
-        else:
-            _copy_into(b.inputs, inputs)
-        self._replay(b.prologue)
+            with timers.span("wave.build", lanes=B):
+                b = self.buckets[B] = self._build(inputs)
+        self._replay(b.prologue, part="prologue")
         flags = [True] * len(b.chunks)  # not read yet: a chunk with nothing active is a no-op
         k = 0
         while k < len(b.chunks):
             if not flags[k]:
                 k += 1
                 continue
-            self._replay(b.chunks[k])
-            flags = b.flags.tolist()  # the one host read of this chunk
+            self._replay(b.chunks[k], part="chunk", level=k)
+            icp.add_chunks()
+            with timers.span("wave.flags"):
+                flags = b.flags.tolist()  # the one host read of this chunk
             self.syncs += 1
-        self._replay(b.epilogue)
+        self._replay(b.epilogue, part="epilogue")
         self.waves += 1
         return b.out.clone()
 
-    def _replay(self, g: _Graph) -> None:
-        g.replay()
+    def _replay(self, g: _Graph, **part) -> None:
+        with timers.span("wave.replay", **part):
+            g.replay()
         self.replays += 1

@@ -1059,6 +1059,60 @@ def test_capture_runs_with_sync_errors(cuda):
     _, inits, *_ = _pass1_fn(ctx, q, cfg, plan)
     lanes = torch.arange(8, device=cuda)
     rows = graphs.run(q, inits, plan, lanes, torch.zeros_like(lanes))
-    assert rows.shape == (8, 173) and rows.dtype == torch.float32
+    assert rows.shape == (8, 174) and rows.dtype == torch.float32
     assert list(wave_graph.stats()["build_s"]) == [8]
     wave_graph.drop()
+
+
+@pytest.mark.gpu
+def test_a_traced_bucket_gives_the_rows_of_an_untraced_one(cuda):
+    """A bucket built (warm-up and capture under the sync debug mode
+    "error") and replayed with the program's trace on and an annotation
+    prefix, under the profiler, gives the bits of the same waves with the
+    trace off; its spans count what `wave_graph.stats()` counts, and a span
+    is legal inside the "error" mode and inside a capture."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.pipeline import wave_graph
+    from lrr_tpu_torch.pipeline.registration import WAVE_STEPS, _pass1_fn
+    from lrr_tpu_torch.utils import timers
+
+    ctx, q, cfg, plan = _bench(cuda)
+    svm = load_default_verifier()
+    _, inits, *_ = _pass1_fn(ctx, q, cfg, plan)
+    lanes = torch.arange(8, device=cuda)
+
+    def two_waves():
+        """A new bucket's first wave (built) and a second (replayed)."""
+        wave_graph.drop()
+        graphs = wave_graph.wave_graphs(ctx, cfg, svm, WAVE_STEPS)
+        first = graphs.run(q, inits, plan, lanes, torch.zeros_like(lanes))
+        return first, graphs.run(q, inits, plan, lanes.flip(0), torch.ones_like(lanes))
+
+    off = two_waves()
+    timers.trace_on(annotate="lrr_test.")
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            on = two_waves()
+            st = wave_graph.stats()
+            with wave_graph._sync_errors(), timers.span("inside_error_mode"):
+                x = torch.ones(4, device=cuda) + 1
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g), timers.span("inside_capture"):
+                y = x * 2
+            g.replay()
+        got = timers.drain()
+    finally:
+        timers.trace_off()
+        wave_graph.drop()
+    assert wave_graph.first_difference(on, off) is None
+    assert torch.equal(y, torch.full((4,), 4.0, device=cuda))
+    names = [s.name for s in got.spans]
+    assert names.count("wave.build") == names.count("wave.build.warmup") == 1
+    assert names.count("wave.build.capture") == 2 + len(icp._staged_caps(cfg.estimation))
+    assert names.count("wave.inputs") == 2 and names.count("wave.flags") == st["syncs"]
+    assert names.count("wave.replay") == st["replays"]
+    assert {"inside_error_mode", "inside_capture"} <= set(names) and got.dropped == 0
+    ranges = {e.name for e in prof.events()}
+    for n in ("wave.build.capture", "wave.replay", "wave.flags", "inside_capture"):
+        assert "lrr_test." + n in ranges

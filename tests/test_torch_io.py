@@ -502,13 +502,6 @@ def test_stage_timers_count_and_report_as_lrr_tpus():
     assert tt.report().splitlines()[0].split() == ["register", "1.500s", "x2"]
 
 
-def test_profile_trace_writes_a_chrome_trace(tmp_path):
-    with ttimers.profile_trace(str(tmp_path / "prof")) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert any(e.key == "aten::mm" for e in prof.key_averages())
-    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
-
-
 def test_new_modules_import_neither_jax_nor_lrr_tpu():
     """Importing the port's command line, every module of the file-based
     pipeline and every module of the estimate family leaves jax and lrr_tpu
