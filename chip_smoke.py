@@ -28,8 +28,12 @@ Phases, one line each; any failure raises and exits non-zero:
               keypoints a volume; seconds per stage, counts, map shapes,
               peak memory, feature repeatability under the true transform,
               K2's launch at 4096 x 4096 x 195 inside `prepare_pair`, the
-              two exact Voronoi builds against each other, and two runs
-              of `detect_features` bit for bit;
+              two exact Voronoi builds and K4 against each other on a
+              sub-box, K4 (two launches in `prepare_pair`, one a map)
+              against the plain blocked build at the fixed map's shape and
+              at copd512's 320 x 352 x 352 (bits, times, the pairs it
+              evaluated, its bound), and two runs of `detect_features` bit
+              for bit;
   7. serve_reference   the phase-6 pair served at the reference constants
               (verify/train_default.py::reference_cfg: 20 candidates, 64
               query keypoints, 8,000 matches, 70 iterations, gate 64):
@@ -70,7 +74,9 @@ Phases, one line each; any failure raises and exits non-zero:
               models through `svm-predict`, one served run with each;
  11. kernels_path_shapes  K1 and K2 against their plain versions, as in
               phase 3, at every shape a path launched them at that phase 3
-              did not hold.
+              did not hold; K3 likewise (phase 16's checks), and K4 at every
+              map shape and feature count a path launched it at that phase
+              6 did not hold, on features made for the shape.
  12. estimate  (printed before phase 11, while phase 6's pair is held) the
               estimate family on the card: `lrr_tpu_torch.cli.main(["estimate",
               ...])` for `icp` and the four CDC methods on phase 5's feature
@@ -153,6 +159,7 @@ import argparse
 import contextlib
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -167,10 +174,16 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.join(ROOT, "lrr_tpu_torch", "data", "bench_pair_s64")
-# K3's launches on every path, {(L, n): {path: launches}}: each phase folds
-# `kernels.PINV_SHAPES` in where it reads its counts (`note_pinv_shapes`),
-# and K3 is held against its plain version at every one of them
+# K3's and K4's launches on every path, {(L, n): {path: launches}} and
+# {(D, H, W, N): {path: launches}}: each phase folds `kernels.PINV_SHAPES`
+# and `kernels.VORONOI_SHAPES` in where it reads its counts
+# (`note_path_shapes`), and each kernel is held against its plain version at
+# every one of them
 PINV_PATH_SHAPES: dict[tuple[int, int], dict[str, int]] = {}
+VORONOI_PATH_SHAPES: dict[tuple[int, int, int, int], dict[str, int]] = {}
+# K4 measured against its plain version, by "DxHxWxN" (`measure_k4`)
+K4_MEASURED: dict[str, dict] = {}
+COPD512_MAP = (320, 352, 352)  # the copd512 cells' Voronoi maps (z, y, x) at 1 mm
 K1_TOL = 2e-5  # x max |entry|: fp32 sums in another order
 
 
@@ -217,14 +230,17 @@ class Timer:
         return statistics.median(times)
 
 
-def note_pinv_shapes(path: str, shapes: dict | None = None) -> None:
-    """Fold the (L, n) shapes `path` launched K3 at (`kernels.PINV_SHAPES`,
-    or a rank's `shapes`) into PINV_PATH_SHAPES."""
+def note_path_shapes(path: str, delta: tuple | None = None) -> None:
+    """Fold the shapes `path` launched K3 and K4 at (a `kernels.counts()`-
+    shaped tuple: a `counts_since` delta or a rank's; by default the
+    counters as they stand) into PINV_PATH_SHAPES and VORONOI_PATH_SHAPES."""
     from lrr_tpu_torch.ops import kernels
 
-    for shape, n in (kernels.PINV_SHAPES if shapes is None else shapes).items():
-        by_path = PINV_PATH_SHAPES.setdefault(tuple(shape), {})
-        by_path[path] = by_path.get(path, 0) + n
+    delta = kernels.counts() if delta is None else delta
+    for logged, into in ((delta[3], PINV_PATH_SHAPES), (delta[4], VORONOI_PATH_SHAPES)):
+        for shape, n in logged.items():
+            by_path = into.setdefault(tuple(shape), {})
+            by_path[path] = by_path.get(path, 0) + n
 
 
 def ptxas_report(logs: dict[str, str]) -> dict:
@@ -498,7 +514,7 @@ def serve_and_check(label: str, ctx, cfg, meta, seed: int, card: str,
         times.append(s)
     launches = dict(kernels.LAUNCHES)
     k1_shapes = sorted(kernels.K1_SHAPES.items(), key=lambda kv: -kv[1])
-    note_pinv_shapes(label, kernels.counts_since(counts0)[3])
+    note_path_shapes(label, kernels.counts_since(counts0))
 
     acc = acceptance_stats(out, queries, true)
     rec = {
@@ -631,6 +647,7 @@ def run_stage1_bench(seed: int, card: str):
         if not np.allclose(getattr(true, k).cpu().numpy(), np.asarray(meta["true"][k]), atol=1e-5):
             raise AssertionError(f"stage1_bench: true.{k} differs from the committed pair's")
     ctx, seconds, keypoints = timed_prepare_pair(moving, fixed, cfg)
+    note_path_shapes("stage1_bench")  # the maps' K4 launches: serving counts from here on
     agreement = {
         side: [share_matched(getattr(ctx, side), getattr(committed, side), 0.01),
                share_matched(getattr(committed, side), getattr(ctx, side), 0.01)]
@@ -647,7 +664,64 @@ def run_stage1_bench(seed: int, card: str):
     return out, (ctx, moving, fixed, cfg, meta)
 
 
-def run_stage1_reference(card: str):
+def k4_key(shape: tuple[int, int, int], n: int) -> str:
+    return "x".join(map(str, (*shape, n)))
+
+
+def measure_k4(timer, xyz, mask, origin, spacing, shape: tuple[int, int, int]) -> dict:
+    """K4 against its plain version on the card (`voronoi_map_exact_plain`:
+    the blocked build above 4M voxels, else the brute force) on one map:
+    bits (twice), the pairs it evaluated, times and bound.  Its launches
+    here are taken back from the counters: they are not a path's."""
+    from lrr_tpu_torch.ops import kernels, voronoi
+    from lrr_tpu_torch.utils import sol
+
+    before = kernels.counts()
+    args = (xyz, mask, origin, spacing, tuple(shape))
+    stats = torch.zeros(2, dtype=torch.int64, device=xyz.device)
+    got = kernels.voronoi_nearest(*args, stats=stats)
+    again = kernels.voronoi_nearest(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = voronoi.voronoi_map_exact_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    key = k4_key(shape, xyz.shape[0])
+    if not torch.equal(got, again):
+        raise AssertionError(f"K4 {key}: two launches on the same inputs differ")
+    if not torch.equal(got, plain):
+        raise AssertionError(f"K4 {key}: {int((got != plain).sum())} voxels differ from the "
+                             f"plain build")
+    del again, plain
+    pairs, kept = (int(v) for v in stats.cpu())
+    n_vox = math.prod(shape)
+    bound, by = sol.voronoi_bound_ms(n_vox, xyz.shape[0], pairs)
+    fn = lambda: kernels.voronoi_nearest(*args)  # noqa: E731
+    ms = timer.ms(fn, reps=5)
+    rec = {"shape": list(shape), "features": xyz.shape[0], "valid": int(mask.sum()),
+           "bit_identical": True, "pairs": pairs, "pairs_per_voxel": pairs / n_vox,
+           "kept_per_block": kept / math.prod(-(-d // 16) for d in shape),
+           "ms": ms, "ms_warm": timer.ms(fn, reps=5, cold=False), "plain_ms": plain_ms,
+           "plain": "blocked" if n_vox > voronoi._BLOCKED_MIN_VOXELS else "brute_force",
+           "bound_ms": bound, "bound_by": by, "share_of_bound": bound / ms}
+    kernels.add_counts(kernels.counts_since(before), -1)
+    K4_MEASURED[key] = rec
+    return rec
+
+
+def k4_inputs(rng, shape: tuple[int, int, int], n: int, dev):
+    """n features (15 % masked) uniform in the ellipsoid inscribed in a
+    1 mm map of `shape` at the origin: dense inside, empty corners."""
+    D, H, W = shape
+    u = rng.standard_normal((n, 3))
+    u *= (rng.uniform(size=(n, 1)) ** (1 / 3)) / np.linalg.norm(u, axis=1, keepdims=True)
+    half = np.array([W, H, D], np.float64) / 2 - 2.0
+    xyz = torch.tensor(u * half + half + 2.0, dtype=torch.float32, device=dev)
+    mask = torch.tensor(rng.uniform(size=n) > 0.15, device=dev)
+    return xyz, mask, torch.zeros(3, device=dev), torch.ones(3, device=dev)
+
+
+def run_stage1_reference(card: str, timer):
     """Phase 6: stage 1 at the reference constants.  The pair and its
     context go on to phase 7, and so do the launch counts: set to 0 here,
     read there, over the path volume -> context -> regions -> served."""
@@ -699,9 +773,18 @@ def run_stage1_reference(card: str):
     brute_s = time.perf_counter() - t0
     blocked = voronoi.voronoi_map_exact_blocked(fs.xyz, fs.mask, sub_origin, fv.spacing, sub)
     exact_builds_equal = torch.equal(brute, blocked)
+    before = kernels.counts()
+    k4_equal_on_subbox = torch.equal(
+        brute, kernels.voronoi_nearest(fs.xyz, fs.mask, sub_origin, fv.spacing, sub))
+    kernels.add_counts(kernels.counts_since(before), -1)  # a check, not the path's
     differs_from_map = int(
         (brute != fv.index_vol[z0 : z0 + sub[0], y0 : y0 + sub[1], x0 : x0 + sub[2]]).sum()
     )
+
+    # K4 against the plain blocked build at the fixed map's shape (the
+    # path's) and at copd512's (a box of that shape at this map's origin)
+    k4 = {"path": measure_k4(timer, fs.xyz, fs.mask, fv.origin, fv.spacing, (D, H, W)),
+          "copd512": measure_k4(timer, fs.xyz, fs.mask, fv.origin, fv.spacing, COPD512_MAP)}
 
     counts = context_counts(ctx, keypoints)
     digests = context_digests(ctx)
@@ -712,6 +795,7 @@ def run_stage1_reference(card: str):
         k2_shapes=k2_shape_rows(k2_shapes),
         detect_again_s=detect_again_s, detect_bit_identical=same_bits,
         exact_builds_equal_on_subbox=exact_builds_equal, subbox_brute_force_s=brute_s,
+        k4_equal_on_subbox=k4_equal_on_subbox, k4=k4,
         subbox_voxels_differing_from_map=differs_from_map,
         grids_baked=[ctx.moving_grid is not None, ctx.fixed_grid is not None],
         peak_mem_gb=peak_gb, digests=digests,
@@ -727,6 +811,11 @@ def run_stage1_reference(card: str):
         raise AssertionError(f"stage1_reference: no K2 launch at 4096 x 4096 x 195, k=1: {k2_shapes}")
     if not exact_builds_equal:
         raise AssertionError("stage1_reference: the two exact Voronoi builds differ")
+    if not k4_equal_on_subbox:
+        raise AssertionError("stage1_reference: K4 differs from the brute force on the sub-box")
+    if launches["voronoi"] != 2:
+        raise AssertionError(f"stage1_reference: {launches['voronoi']} K4 launches in "
+                             f"prepare_pair, not one a map")
     if not same_bits:
         raise AssertionError("stage1_reference: two runs of detect_features differ")
     return ctx, moving, fixed, true, cfg, digests
@@ -930,7 +1019,7 @@ def run_serve_reference(seed: int, card: str, ref):
         registration._wave_runner = wave_runner
     launches = dict(kernels.LAUNCHES)
     k1_shapes = sorted(kernels.K1_SHAPES.items(), key=lambda kv: -kv[1])
-    note_pinv_shapes("serve_reference")
+    note_path_shapes("serve_reference")
     k2_shapes = dict(kernels.K2_SHAPES)
 
     # the last plan again from the bare index maps (after the counts were
@@ -1119,7 +1208,7 @@ def run_regions_bench(seed: int, card: str, bench):
             problems.append(f"{name}: K1 was never launched")
         if not k1_on_path and n["normal_equations"] != 0:
             problems.append(f"{name}: K1 launched {n['normal_equations']} times off its path")
-        note_pinv_shapes(f"regions_bench_{name}")
+        note_path_shapes(f"regions_bench_{name}")
         kernels.reset_launch_counts()
 
     kernels.reset_launch_counts()
@@ -1378,7 +1467,7 @@ def run_cli_reference(seed: int, card: str, ref):
         run("register", register + ["--out", p("results")])
         launches = dict(kernels.LAUNCHES)
         k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
-        note_pinv_shapes("cli_reference")
+        note_path_shapes("cli_reference")
         run("register", register + ["--out", p("results_again")])
         twice = same_files(p("results"), p("results_again"))
         if twice:
@@ -1708,7 +1797,7 @@ def run_batch_calibrate(seed: int, card: str, work: str):
             problems.append(f"{name}: the serialised model's probabilities differ by {file_diff}")
     launches = dict(kernels.LAUNCHES)
     k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
-    note_pinv_shapes("batch_calibrate")
+    note_path_shapes("batch_calibrate")
     total_bytes = tree_bytes(work)
     phase(
         "batch_calibrate", card=card, queries_per_pair=len(queries),
@@ -1925,7 +2014,7 @@ def run_estimate(seed: int, card: str, bench_sets, ref):
         shutil.rmtree(work, ignore_errors=True)
 
     launches = dict(kernels.LAUNCHES)
-    note_pinv_shapes("estimate")
+    note_path_shapes("estimate")
     phase("estimate", card=card, points=[int(mov_xyz.shape[0]), int(fix_xyz.shape[0])],
           cdc_iterations_flag=ESTIMATE_ITERATIONS, identity_error_mm=ident_b, methods=methods,
           similarity2d=sim, fit_affine_to_field=fit_rec, multiresolution_masks=decimate,
@@ -2000,6 +2089,7 @@ def parallel_rank(spec_path: str) -> None:
     k1_shapes: dict[str, int] = {}
     k2_shapes: dict[str, int] = {}
     pinv_shapes: dict[str, int] = {}
+    voronoi_shapes: dict[str, int] = {}
 
     def part(name: str, fn):
         """Run one part with the counts set to 0 just before it and read just
@@ -2020,6 +2110,9 @@ def parallel_rank(spec_path: str) -> None:
         for shape, n in kernels.PINV_SHAPES.items():
             key = "x".join(map(str, shape))
             pinv_shapes[key] = pinv_shapes.get(key, 0) + n
+        for shape, n in kernels.VORONOI_SHAPES.items():
+            key = "x".join(map(str, shape))
+            voronoi_shapes[key] = voronoi_shapes.get(key, 0) + n
         return out
 
     torch.cuda.reset_peak_memory_stats()
@@ -2167,7 +2260,7 @@ def parallel_rank(spec_path: str) -> None:
                         f"phase 10's {spec['batch']['selected']['pair11']}")
 
     rec.update(seconds=seconds, launches=launches, k1_shapes=k1_shapes, k2_shapes=k2_shapes,
-               pinv_shapes=pinv_shapes,
+               pinv_shapes=pinv_shapes, voronoi_shapes=voronoi_shapes,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, problems=problems)
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -2239,8 +2332,9 @@ def run_parallel(seed: int, card: str, digests: dict, served: dict, batch: dict,
         return merged
 
     for rec in ranks:
-        note_pinv_shapes(f"parallel_rank{rec['rank']}", {
-            tuple(int(v) for v in k.split("x")): n for k, n in rec["pinv_shapes"].items()})
+        note_path_shapes(f"parallel_rank{rec['rank']}", ({}, {}, {}, *(
+            {tuple(int(v) for v in k.split("x")): n for k, n in rec[key].items()}
+            for key in ("pinv_shapes", "voronoi_shapes"))))
     launches = {name: sum(part[name] for rec in ranks for part in rec["launches"].values())
                 for name in ranks[0]["launches"]["serve"]}
     return launches, shapes("k1_shapes"), shapes("k2_shapes")
@@ -2346,7 +2440,7 @@ def run_train_verifier(seed: int, card: str, bench, served_ref, served7: dict):
                 setattr(train_default, name, fn)
         launches = dict(kernels.LAUNCHES)
         k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
-        note_pinv_shapes("train_verifier")
+        note_path_shapes("train_verifier")
         collected = os.path.join(work, "collected")
         model = load_default_verifier(os.path.join(collected, "verifier_default.model"))
         with open(os.path.join(collected, "verifier_default.model.json")) as f:
@@ -2393,7 +2487,7 @@ def run_train_verifier(seed: int, card: str, bench, served_ref, served7: dict):
         out7 = register_locations_staged(ctx_r, q7, cfg7, model, plan7)
         torch.cuda.synchronize()
         serve7_s = time.perf_counter() - t0
-        note_pinv_shapes("train_verifier_serve_reference", kernels.counts_since(counts7)[3])
+        note_path_shapes("train_verifier_serve_reference", kernels.counts_since(counts7))
         acc7 = acceptance_stats(out7, queries7, true7)
         sel7 = out7.selected.cpu().numpy()
         shipped7 = np.asarray(served7["selected"])
@@ -2486,7 +2580,7 @@ def run_sol(seed: int, card: str):
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     k1_shapes, k2_shapes = dict(kernels.K1_SHAPES), dict(kernels.K2_SHAPES)
-    note_pinv_shapes("sol")
+    note_path_shapes("sol")
 
     qd, pd, mask = sol.descriptor_nn_inputs(4096, 4096, seed, dev)
     _, idx = kernels.knn(qd, pd, mask, 1)
@@ -2499,8 +2593,8 @@ def run_sol(seed: int, card: str):
             problems.append(f"{key} = {roof[key]} GB/s, not under the peak {sol.PEAK_HBM_GBS}")
     if not torch.equal(idx, idx_plain):
         problems.append("K2's indices differ from knn_plain's on the report's inputs")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("normal_equations", "knn", "pinv_sym"):  # the report runs no stage 1 (K4)
+        if launches[name] <= 0:
             problems.append(f"kernel {name} was never launched by the report")
     phase("sol", card=card, seconds=seconds, peaks={
         "f32_tflops": sol.PEAK_F32_TFLOPS, "tf32_tflops": sol.PEAK_TF32_TFLOPS,
@@ -2766,9 +2860,9 @@ def run_wave_graphs(seed: int, card: str, served_ref, ref_cfg, timer):
     wave_graph.drop()
     launches = dict(kernels.LAUNCHES)
     k1_shapes, pinv_shapes = dict(kernels.K1_SHAPES), dict(kernels.PINV_SHAPES)
-    note_pinv_shapes("wave_graphs")
-    for name, n in launches.items():
-        if n <= 0:
+    note_path_shapes("wave_graphs")
+    for name in ("normal_equations", "knn", "pinv_sym"):  # serving runs no stage 1 (K4)
+        if launches[name] <= 0:
             problems.append(f"kernel {name} was never launched on the path")
     for label, rec in (("bench", bench), ("reference", reference)):
         if not rec["graph_equal_eager"]:
@@ -2845,7 +2939,7 @@ def main() -> None:
 
     launches4, shapes4 = run_slice(args.seed, card)
     (launches5, shapes5), bench = run_stage1_bench(args.seed, card)
-    ref = run_stage1_reference(card)
+    ref = run_stage1_reference(card, timer)
     launches7, shapes7, served7, served_ref = run_serve_reference(args.seed, card, ref)
     launches8, shapes8, entries8 = run_regions_bench(args.seed, card, bench)
     launches14, shapes14, k2_14 = run_train_verifier(args.seed, card, bench, served_ref, served7)
@@ -2917,11 +3011,20 @@ def main() -> None:
                     timer, pinv_batch(rng, L, n, kind, dev), key)
     unchecked = [shape for shape in PINV_PATH_SHAPES
                  if "max_abs_err" not in k3.get(f"{shape[0]}x{shape[1]}_spd", {})]
+    # K4 against its plain version at every (D, H, W, N) a path gave it
+    # that phase 6 did not hold, on features made for the shape
+    k4_added = {}
+    for D, H, W, n in sorted(VORONOI_PATH_SHAPES):
+        if k4_key((D, H, W), n) not in K4_MEASURED:
+            k4_added[k4_key((D, H, W), n)] = measure_k4(
+                timer, *k4_inputs(rng, (D, H, W), n, dev), (D, H, W))
     phase("kernels_path_shapes", card=card, normal_equations=added, knn=k2_added,
-          pinv_sym=k3_added,
+          pinv_sym=k3_added, voronoi=k4_added,
           launches={k1_key(*shape, True): n for shape, n in sorted(path_shapes.items())},
           knn_launches={k2_key(*shape): n for shape, n in sorted(k2_path_shapes.items())},
           pinv_sym_launches={f"{L}x{n}": by for (L, n), by in sorted(PINV_PATH_SHAPES.items())},
+          voronoi_launches={k4_key(shape[:3], shape[3]): by
+                            for shape, by in sorted(VORONOI_PATH_SHAPES.items())},
           pinv_sym_unchecked=unchecked)
     if unchecked:
         raise AssertionError(f"kernels_path_shapes: K3 unchecked at {unchecked}")
@@ -2930,6 +3033,7 @@ def main() -> None:
     k1_main = max(shapes4, key=shapes4.get)
     k1m, k2m, k2r = k1[k1_key(*k1_main, True)], k2["128x128x195_k1"], k2["4096x4096x195_k1"]
     k3m = k3["bench_wave_64x12"]
+    k4m = next(rec for rec in K4_MEASURED.values() if tuple(rec["shape"]) == COPD512_MAP)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": "normal_equations", "route": "cuda",
@@ -2962,6 +3066,21 @@ def main() -> None:
              f"{L}x{n}x{n}": {**{k: k3[f"{L}x{n}_spd"][k] for k in keys},
                               "launches": sum(by.values()), "launches_by_path": by}
              for (L, n), by in sorted(PINV_PATH_SHAPES.items())}},
+        {"name": "voronoi", "route": "cuda", "source": "lrr_tpu_torch/csrc/voronoi.cu",
+         "replaces": None,
+         "note": "no Pallas counterpart: lrr_tpu builds the Voronoi map with XLA ops; the "
+                 "port's plain versions are ops/voronoi.py's exact builds (blocked above 4M "
+                 "voxels), which `plain_ms` times once on the card",
+         "launches": launches["voronoi"], "bit_identical": True,
+         **{k: k4m[k] for k in ("ms", "ms_warm", "plain_ms", "bound_ms", "bound_by",
+                                "share_of_bound", "pairs_per_voxel")},
+         "shape": "x".join(map(str, COPD512_MAP)) + f"x{k4m['features']} (copd512's map)",
+         "other_path_shapes": {
+             k4_key(shape[:3], shape[3]): {
+                 **{k: K4_MEASURED[k4_key(shape[:3], shape[3])][k]
+                    for k in ("ms", "plain_ms", "bound_ms", "bound_by", "pairs_per_voxel")},
+                 "launches": sum(by.values()), "launches_by_path": by}
+             for shape, by in sorted(VORONOI_PATH_SHAPES.items())}},
     ], "launch_floor_ms": floor_ms, "launches_by_path": by_path}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,13 +12,17 @@
      n x n matrices, n <= 12, by float64 Jacobi with no host round trip (no
      Pallas counterpart: lrr_tpu leaves the ICP's solve to XLA's
      eigensolver inside its wave program); source csrc/pinv_sym.cu.
+  K4 `voronoi_nearest` — stage 1's exact nearest-valid-feature index map
+     (no Pallas counterpart: lrr_tpu builds it with XLA ops; its plain
+     versions are ops/voronoi.py's exact builds); source csrc/voronoi.cu.
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  `LAUNCHES` counts kernel
 launches (never plain-version calls) so a run can show that its path went
 through the kernels; `K1_SHAPES` and `K2_SHAPES` log which shapes they were
-launched at, `PINV_SHAPES` K3's.  These are Python counters: a replayed
-CUDA graph moves them through `add_counts` (pipeline/wave_graph.py).
+launched at, `PINV_SHAPES` K3's, `VORONOI_SHAPES` K4's.  These are Python
+counters: a replayed CUDA graph moves them through `add_counts`
+(pipeline/wave_graph.py).
 """
 
 from __future__ import annotations
@@ -31,24 +35,29 @@ from lrr_tpu_torch.ops import native
 
 KMAX = 128  # largest k the k-NN kernel keeps (the TPU kernel's lane width)
 
-LAUNCHES = {"normal_equations": 0, "knn": 0, "pinv_sym": 0}
+LAUNCHES = {"normal_equations": 0, "knn": 0, "pinv_sym": 0, "voronoi": 0}
 K1_SHAPES: dict[tuple[int, int, int], int] = {}  # (L, M_f, M_b) -> launches
 K2_SHAPES: dict[tuple[int, int, int, int], int] = {}  # (Q, N, D, k) -> launches
 PINV_SHAPES: dict[tuple[int, int], int] = {}  # (L, n) -> launches
+VORONOI_SHAPES: dict[tuple[int, int, int, int], int] = {}  # (D, H, W, N) -> launches
 PINV_MAX_N = 12  # the largest matrix K3 takes
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    K1_SHAPES.clear()
-    K2_SHAPES.clear()
-    PINV_SHAPES.clear()
+    for log in _counters()[1:]:
+        log.clear()
+
+
+def _counters() -> tuple[dict, ...]:
+    return LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES, VORONOI_SHAPES
 
 
 def counts() -> tuple[dict, ...]:
-    """A copy of every counter: (LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES)."""
-    return tuple(dict(c) for c in (LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES))
+    """A copy of every counter: (LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES,
+    VORONOI_SHAPES)."""
+    return tuple(dict(c) for c in _counters())
 
 
 def counts_since(before: tuple[dict, ...]) -> tuple[dict, ...]:
@@ -60,7 +69,7 @@ def counts_since(before: tuple[dict, ...]) -> tuple[dict, ...]:
 def add_counts(delta: tuple[dict, ...], times: int = 1) -> None:
     """Add `times` x a `counts_since` delta to the counters (a shape whose
     count comes to 0 leaves its log)."""
-    for counter, d in zip((LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES), delta):
+    for counter, d in zip(_counters(), delta):
         for k, v in d.items():
             counter[k] = counter.get(k, 0) + times * v
             if counter[k] == 0 and counter is not LAUNCHES:
@@ -350,3 +359,62 @@ def pinv_hermitian_small(a: torch.Tensor, rotations: torch.Tensor | None = None)
         LAUNCHES["pinv_sym"] += 1
         PINV_SHAPES[(L, n)] = PINV_SHAPES.get((L, n), 0) + 1
     return out.reshape(a.shape)
+
+
+# ---------------------------------------------------------------------------
+# K4: the exact Voronoi map
+# ---------------------------------------------------------------------------
+
+
+def voronoi_nearest(
+    xyz: torch.Tensor,  # [N, 3] feature locations (physical)
+    mask: torch.Tensor,  # [N] bool
+    origin: torch.Tensor,  # [3] (x, y, z) of voxel (0, 0, 0)
+    spacing: torch.Tensor,  # [3]
+    shape_zyx: tuple[int, int, int],
+    stats: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """K4.  The exact nearest-valid-feature index map int32 [D, H, W] (-1
+    where no feature is valid), with the bits of `voronoi_map_exact` (and
+    of `voronoi_map_exact_blocked`, which gives the same).  On the CPU the
+    plain build by size (`voronoi.voronoi_map_exact_plain`).  On the card
+    every tensor is contiguous float32 (the mask bool) and origin and
+    spacing are read there, with no host read.  With `stats` (int64 [2],
+    zeroed) the kernel adds the voxel-candidate pairs it evaluated and the
+    candidates its blocks kept (for the bound)."""
+    if xyz.device.type == "cpu":
+        from lrr_tpu_torch.ops import voronoi
+
+        return voronoi.voronoi_map_exact_plain(xyz, mask, origin, spacing, shape_zyx)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"voronoi_nearest: unsupported device {xyz.device}")
+    N = xyz.shape[0]
+    D, H, W = (int(s) for s in shape_zyx)
+    if xyz.shape != (N, 3) or mask.shape != (N,) or origin.shape != (3,) or spacing.shape != (3,):
+        raise ValueError(f"voronoi_nearest: bad shapes {tuple(xyz.shape)} {tuple(mask.shape)} "
+                         f"{tuple(origin.shape)} {tuple(spacing.shape)}")
+    if min(D, H, W) < 1:
+        raise ValueError(f"voronoi_nearest: empty map {shape_zyx}")
+    dev = xyz.device
+    _check_cuda("voronoi_nearest", torch.float32, dev, xyz, origin, spacing)
+    _check_cuda("voronoi_nearest", torch.bool, dev, mask)
+    if stats is not None:
+        _check_cuda("voronoi_nearest", torch.int64, dev, stats)
+        if stats.shape != (2,):
+            raise ValueError(f"voronoi_nearest: stats {tuple(stats.shape)}, want (2,)")
+    out = torch.empty((D, H, W), dtype=torch.int32, device=dev)
+    packed = torch.empty((max(N, 1), 4), dtype=torch.float32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    native.check(
+        native.library().lrr_voronoi_nearest(
+            xyz.data_ptr(), mask.data_ptr(), origin.data_ptr(), spacing.data_ptr(),
+            packed.data_ptr(), count.data_ptr(), out.data_ptr(),
+            0 if stats is None else stats.data_ptr(), N, D, H, W,
+            torch.cuda.current_stream(dev).cuda_stream,
+        ),
+        "voronoi_nearest",
+    )
+    LAUNCHES["voronoi"] += 1
+    shape = (D, H, W, N)
+    VORONOI_SHAPES[shape] = VORONOI_SHAPES.get(shape, 0) + 1
+    return out

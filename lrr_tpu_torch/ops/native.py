@@ -47,6 +47,9 @@ _SIGNATURES = {
     "lrr_knn_smem_bytes": [_I, _I, _I],
     # a, out, rotations (or null), L, n, rtol, stream
     "lrr_pinv_sym": [_P, _P, _P, _I, _I, ctypes.c_double, _P],
+    # xyz, mask, origin, spacing, packed, count, out, stats (or null), n, D,
+    # H, W, stream
+    "lrr_voronoi_nearest": [_P] * 8 + [_I] * 4 + [_P],
     # stream: an empty kernel, for the launch floor
     "lrr_empty": [_P],
 }

@@ -14,10 +14,13 @@ indices (-1 where there is no feature at all):
 
 In all of them a voxel's coordinates are origin + index * spacing from its
 GLOBAL index, the squared distance is (dx*dx + dy*dy) + dz*dz in fp32, and
-equal distances go to the lowest feature index.  `build_feature_voronoi`
-picks among them by the map's size.  The JAX package's custom-vmap
-`flat_take` exists for the TPU's gather lowering; here the lookup is plain
-indexing.
+equal distances go to the lowest feature index.  The two exact builds are
+the plain versions of the card's kernel K4 (`ops.kernels.voronoi_nearest`,
+csrc/voronoi.cu), which gives their bits.  `build_feature_voronoi` picks by
+device and size: K4 for every exact map on the card, the brute force or the
+blocked build on the CPU, jump flooding for a map too large for either.
+The JAX package's custom-vmap `flat_take` exists for the TPU's gather
+lowering; here the lookup is plain indexing.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from lrr_tpu_torch.ops import ieee
+from lrr_tpu_torch.ops import ieee, kernels
 from lrr_tpu_torch.parallel.distributed import all_gather
 
 _OFFSETS = [
@@ -274,6 +277,18 @@ def voronoi_map_exact_blocked(xyz, mask, origin, spacing, shape_zyx, block: int 
     )
 
 
+def _plain_exact(n_vox: int):
+    """The exact build for a map of `n_vox` voxels on the CPU: the brute
+    force, or above `_BLOCKED_MIN_VOXELS` the blocked build (the same bits
+    at a fraction of the work)."""
+    return voronoi_map_exact_blocked if n_vox > _BLOCKED_MIN_VOXELS else voronoi_map_exact
+
+
+def voronoi_map_exact_plain(xyz, mask, origin, spacing, shape_zyx):
+    """K4's plain version: the exact build for this map's size."""
+    return _plain_exact(math.prod(shape_zyx))(xyz, mask, origin, spacing, shape_zyx)
+
+
 def voxel_ids(
     shape_zyx: tuple[int, int, int],
     origin: torch.Tensor,  # [3] (x, y, z)
@@ -316,17 +331,20 @@ def build_feature_voronoi(
     reference uses a 1 mm grid, compute_distance_map.cxx:100-104), on the
     features' device.  Returns (index_vol, origin, spacing).  The shape
     comes from the bounds on the host, rounded up to `shape_bucket`
-    multiples.  Maps up to `exact_max_voxels` are exact (blocked above
-    `_BLOCKED_MIN_VOXELS`); larger ones are built by jump flooding.
+    multiples.  Maps up to `exact_max_voxels` are exact: on the card one K4
+    launch (`kernels.voronoi_nearest`), on the CPU its plain versions
+    (blocked above `_BLOCKED_MIN_VOXELS`); larger ones are built by jump
+    flooding.
 
     With `mesh`, an exact map whose z extent divides over the `axis_name`
     ranks (more than one) is built a z-slab a rank, and one all-gather along
     z gives every rank the whole map.  The slab's origin is lrr_tpu's own
     arithmetic (lrr_tpu/ops/voronoi.py:510-513): its voxel coordinates then
     round as lrr_tpu's sharded build rounds them, which may differ from the
-    one-process map's in the last bit and flip an exact tie.  A slab goes
-    through the blocked builder when the whole map would (block boundaries
-    fall on slab boundaries when the slab depth is a multiple of 16)."""
+    one-process map's in the last bit and flip an exact tie.  On the card a
+    slab is one K4 launch at the slab's origin; on the CPU it goes through
+    the blocked builder when the whole map would (block boundaries fall on
+    slab boundaries when the slab depth is a multiple of 16)."""
     dev = xyz.device
     xyz_h = xyz.cpu().numpy()
     mask_h = mask.cpu().numpy()
@@ -342,10 +360,10 @@ def build_feature_voronoi(
     n_vox = int(np.prod(shape))
     if n_vox > exact_max_voxels:
         build = voronoi_map
-    elif n_vox > _BLOCKED_MIN_VOXELS:
-        build = voronoi_map_exact_blocked
-    else:
-        build = voronoi_map_exact
+    elif dev.type == "cuda":
+        build = kernels.voronoi_nearest
+    else:  # the whole map's size picks a slab's build too
+        build = _plain_exact(n_vox)
     n = 1 if mesh is None else mesh.axis_size(axis_name)
     D, H, W = shape_zyx
     if build is not voronoi_map and n > 1 and D % n == 0:

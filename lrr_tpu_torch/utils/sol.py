@@ -72,7 +72,7 @@ DESC_DIM = 195
 
 
 # ---------------------------------------------------------------------------
-# bounds of the two kernels, over the published peaks
+# bounds of the kernels, over the published peaks
 # ---------------------------------------------------------------------------
 
 
@@ -102,6 +102,14 @@ def knn_bound_ms(q_n: int, p_n: int, dim: int, k: int, live: int) -> tuple[float
     (distance, index) pairs written a query, and a subtract, a multiply and
     an add for each query, live point and component."""
     return _bound(4 * dim * (q_n + p_n) + p_n + 8 * q_n * k, 3 * q_n * live * dim)
+
+
+def voronoi_bound_ms(n_vox: int, n: int, pairs: int) -> tuple[float, str]:
+    """K4's least time for a map of `n_vox` voxels over `n` features in
+    which it evaluated `pairs` voxel-candidate pairs: the features and mask
+    read and the int32 map written once, and the plain distance's 8 fp32
+    operations (3 subtracts, 3 multiplies, 2 adds) a pair evaluated."""
+    return _bound(13 * n + 24 + 4 * n_vox, 8 * pairs)
 
 
 # ---------------------------------------------------------------------------

@@ -12,14 +12,18 @@ median of 20, with the inputs flushed from L2 (`cold_us`) or not (`warm_us`).
 K1 is timed through whichever entry point the checkout has: the symmetric
 `normal_equations_sym` (both directions, un-normalised, L lanes) or the
 earlier single-direction `normal_equations` (the two directions as 2L lanes
-of normalised points); both read the same number of matches.  Prints one
-JSON line.
+of normalised points); both read the same number of matches.  The exact
+Voronoi map at copd512's shape (320 x 352 x 352 at 1 mm, 65,536 features in
+an ellipsoid) is timed through K4 (`voronoi_nearest`, with its bound from the
+pairs it evaluated) where the checkout has it, and through the plain blocked
+build always (5 timings: it takes about a second).  Prints one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -54,7 +58,7 @@ def main() -> None:
     def both(fn):
         return {"cold_us": 1e3 * timer.ms(fn), "warm_us": 1e3 * timer.ms(fn, cold=False)}
 
-    out = {"card": card, "root": os.path.abspath(args.root), "k1": {}, "k2": {}}
+    out = {"card": card, "root": os.path.abspath(args.root), "k1": {}, "k2": {}, "k4": {}}
     for L, M in [(64, 1024), (64, 2048), (64, 4096)]:
         fwd, bwd = cs.k1_direction(rng, L, M, dev), cs.k1_direction(rng, L, M, dev)
         frame = cs.k1_frame(rng, L, dev)
@@ -80,6 +84,20 @@ def main() -> None:
         p = torch.tensor(rng.standard_normal((N, 195)), dtype=torch.float32, device=dev)
         mask = torch.tensor(rng.uniform(size=N) > 0.15, device=dev)
         out["k2"][f"{Q}x{N}x195_k{k}"] = both(lambda: kernels.knn(q, p, mask, k))
+    from lrr_tpu_torch.ops import voronoi
+
+    vor_args = (*cs.k4_inputs(rng, cs.COPD512_MAP, 65536, dev), cs.COPD512_MAP)
+    out["k4"]["plain_blocked_ms"] = timer.ms(lambda: voronoi.voronoi_map_exact_blocked(*vor_args),
+                                             reps=5)
+    if hasattr(kernels, "voronoi_nearest"):
+        from lrr_tpu_torch.utils import sol
+
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        kernels.voronoi_nearest(*vor_args, stats=stats)
+        pairs = int(stats[0])
+        bound_ms, by = sol.voronoi_bound_ms(math.prod(cs.COPD512_MAP), 65536, pairs)
+        out["k4"].update(both(lambda: kernels.voronoi_nearest(*vor_args)), pairs=pairs,
+                         bound_us=1e3 * bound_ms, bound_by=by)
     print(json.dumps(out), flush=True)
 
 

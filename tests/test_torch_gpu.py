@@ -323,6 +323,132 @@ def test_voronoi_ties_go_to_the_lowest_index_on_gpu(cuda):
     assert torch.equal(voronoi.voronoi_map(*args).cpu(), jfa_c)
 
 
+def _k4_case(name, cuda):
+    """(xyz, mask, origin, spacing, shape) on the card for K4's cases."""
+    rng = np.random.default_rng(7)
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=cuda)
+    if name == "phantom_odd_origin":  # test_stage1_is_bit_identical_run_to_run's map
+        fixed, _, _ = _dense_pair(cuda)
+        fs = detect_features(fixed, STAGE1_FEATURES)
+        return (fs.xyz, fs.mask, t([-1.7300001, 2.9333334, 0.1234567]), t([0.7] * 3),
+                (64, 64, 64))
+    if name == "tie_lattice":  # test_voronoi_ties_go_to_the_lowest_index_on_gpu's lattice
+        rng = np.random.default_rng(11)
+        g = np.stack(np.meshgrid(*[np.arange(0.0, 60.0, 6.0)] * 3, indexing="ij"), -1)
+        pts = rng.permutation(g.reshape(-1, 3))
+        return t(pts), t(rng.uniform(size=len(pts)) > 0.2, torch.bool), t([0.0] * 3), \
+            t([1.0] * 3), (64, 64, 64)
+    pts = rng.uniform(0, 50, (900, 3))
+    mask = rng.uniform(size=900) > 0.2
+    if name == "ragged":
+        return t(pts), t(mask, torch.bool), t([-2.0, 1.0, 0.5]), t([0.9, 1.1, 1.3]), (37, 50, 21)
+    if name == "ragged_thin":
+        return t(pts), t(mask, torch.bool), t([3.0, -4.0, 9.0]), t([1.0] * 3), (1, 17, 70)
+    if name == "all_masked":
+        return t(pts), t(np.zeros(900, bool), torch.bool), t([0.0] * 3), t([1.0] * 3), (40, 33, 48)
+    if name == "z_slab":  # rank 1 of 2 of a 64-deep map: build_feature_voronoi's slab origin
+        origin, spacing = t([-2.0, 1.0, 0.5]), t([1.0] * 3)
+        origin = origin + torch.tensor([0.0, 0.0, 1.0], device=cuda) * (32 * spacing[2] * 1)
+        return t(pts), t(mask, torch.bool), origin, spacing, (32, 64, 48)
+    raise KeyError(name)
+
+
+K4_CASES = ["phantom_odd_origin", "tie_lattice", "ragged", "ragged_thin", "all_masked", "z_slab"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", K4_CASES)
+def test_voronoi_kernel_equals_the_plain_builds(cuda, name):
+    """K4 against the card's brute force bit for bit (and the blocked build
+    where the shape is a multiple of its 16-voxel block), two runs alike."""
+    args = _k4_case(name, cuda)
+    want = voronoi.voronoi_map_exact(*args)
+    got = kernels.voronoi_nearest(*args)
+    assert got.dtype == torch.int32 and tuple(got.shape) == args[4]
+    assert torch.equal(got, want)
+    assert torch.equal(kernels.voronoi_nearest(*args), got)
+    if all(n % 16 == 0 for n in args[4]):
+        assert torch.equal(voronoi.voronoi_map_exact_blocked(*args, block=16), got)
+    if name == "all_masked":
+        assert bool((got == -1).all())
+    else:
+        assert bool(args[1][got[got >= 0].long()].all())
+
+
+@pytest.mark.gpu
+def test_voronoi_kernel_at_copd512_size_equals_the_blocked_build(cuda):
+    """A copd512-sized map: 65,536 features (15 % masked) in an ellipsoid,
+    a 352 x 352 x 320 box at 1 mm with empty corners; K4 against the
+    card's blocked build, bit for bit, and K4's pair count."""
+    rng = np.random.default_rng(512)
+    u = rng.standard_normal((65536, 3))
+    u *= (rng.uniform(size=(65536, 1)) ** (1 / 3)) / np.linalg.norm(u, axis=1, keepdims=True)
+    pts = torch.tensor(u * [160.0, 160.0, 150.0] + [175.0, 175.0, 158.0], dtype=torch.float32,
+                       device=cuda)
+    mask = torch.tensor(rng.uniform(size=65536) > 0.15, device=cuda)
+    args = (pts, mask, torch.zeros(3, device=cuda), torch.ones(3, device=cuda), (320, 352, 352))
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    got = kernels.voronoi_nearest(*args, stats=stats)
+    assert torch.equal(got, voronoi.voronoi_map_exact_blocked(*args))
+    pairs, kept = (int(v) for v in stats.cpu())
+    assert 320 * 352 * 352 <= pairs and 0 < kept
+
+
+@pytest.mark.gpu
+def test_voronoi_kernel_refuses_bad_inputs(cuda):
+    xyz = torch.rand(50, 3, device=cuda)
+    mask = torch.ones(50, dtype=torch.bool, device=cuda)
+    o, s = torch.zeros(3, device=cuda), torch.ones(3, device=cuda)
+    for bad in ((xyz.double(), mask, o, s), (xyz.t().contiguous().t(), mask, o, s),
+                (xyz, mask, o.cpu(), s), (xyz, mask.float(), o, s), (xyz[:, :2], mask, o, s)):
+        with pytest.raises(ValueError):
+            kernels.voronoi_nearest(*bad, (8, 8, 8))
+    with pytest.raises(ValueError):
+        kernels.voronoi_nearest(xyz, mask, o, s, (8, 0, 8))
+
+
+@pytest.mark.gpu
+def test_build_feature_voronoi_is_one_kernel_launch_a_map_on_the_card(cuda, monkeypatch):
+    """Every exact map on the card is one K4 launch, whichever plain build
+    its size would pick on the CPU: no plain build runs; the map equals the
+    card's brute force."""
+    rng = np.random.default_rng(3)
+    pts = torch.tensor(rng.uniform(0, 60, (400, 3)), dtype=torch.float32, device=cuda)
+    mask = torch.tensor(rng.uniform(size=400) > 0.1, device=cuda)
+    exact = voronoi.voronoi_map_exact
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain exact build ran on the card")
+
+    monkeypatch.setattr(voronoi, "voronoi_map_exact", refuse)
+    monkeypatch.setattr(voronoi, "voronoi_map_exact_blocked", refuse)
+    for blocked_min in (1 << 22, 1):
+        monkeypatch.setattr(voronoi, "_BLOCKED_MIN_VOXELS", blocked_min)
+        before = kernels.counts()
+        vol, origin, spacing = voronoi.build_feature_voronoi(pts, mask)
+        launches, shapes = (kernels.counts_since(before)[i] for i in (0, 4))
+        assert launches == {"voronoi": 1} and shapes == {(*vol.shape, 400): 1}
+        assert torch.equal(vol, exact(pts, mask, origin, spacing, tuple(vol.shape)))
+
+
+@pytest.mark.gpu
+def test_prepare_pair_on_the_card_builds_both_maps_with_k4(cuda, monkeypatch):
+    """`prepare_pair` on the card: two K4 launches, one a map, and neither
+    plain exact build."""
+    cfg = pipeline_config_from_dict(json.load(open(SMALL + ".json"))["config"])
+    fixed, moving, _ = _dense_pair(cuda)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain exact build ran on the card")
+
+    monkeypatch.setattr(voronoi, "voronoi_map_exact", refuse)
+    monkeypatch.setattr(voronoi, "voronoi_map_exact_blocked", refuse)
+    n0 = kernels.LAUNCHES["voronoi"]
+    ctx = prepare_pair(moving, fixed, cfg)
+    assert kernels.LAUNCHES["voronoi"] == n0 + 2
+    assert ctx.fixed_vor.index_vol.device.type == "cuda"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("min_distance", [2.0, 6.0])
 def test_sparsify_ties_on_gpu(cuda, min_distance):

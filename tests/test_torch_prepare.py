@@ -29,6 +29,7 @@ from lrr_tpu_torch.config import DescriptorConfig
 from lrr_tpu_torch.estimation.icp import VoronoiGrid
 from lrr_tpu_torch.models.affine import Affine3D
 from lrr_tpu_torch.ops import descriptors as tdesc
+from lrr_tpu_torch.ops import kernels
 from lrr_tpu_torch.ops import voronoi as tvor
 from lrr_tpu_torch.pipeline import registration as treg
 from lrr_tpu_torch.types import Volume
@@ -303,6 +304,34 @@ def test_build_feature_voronoi_picks_by_size(monkeypatch, n_vox_limit, blocked_m
     pts = torch.tensor(np.random.default_rng(2).uniform(0, 20, (30, 3)), dtype=torch.float32)
     vol, _, _ = tvor.build_feature_voronoi(pts, torch.ones(30, dtype=torch.bool), exact_max_voxels=n_vox_limit)
     assert called[0] == want and tuple(vol.shape) == (32, 32, 32)
+
+
+@pytest.mark.parametrize("name,shape", [("dense", (48, 64, 32)), ("non_dyadic", (48, 48, 48)),
+                                        ("lattice", (32, 64, 48)), ("non_dyadic", (37, 50, 21)),
+                                        ("sparse", (1, 17, 70))])
+@pytest.mark.parametrize("blocked_min", [1 << 22, 1])
+def test_voronoi_kernel_wrapper_on_the_cpu_is_the_plain_build(monkeypatch, name, shape, blocked_min):
+    """K4's wrapper on CPU tensors gives the plain exact build's bits, on
+    shapes a multiple of the 16-voxel block and ragged ones, whichever
+    plain build the size picks; no K4 counter moves."""
+    pts, mask, origin, spacing, _ = voronoi_case(name)
+    args = (torch.from_numpy(pts), torch.from_numpy(mask), torch.from_numpy(origin),
+            torch.from_numpy(spacing), shape)
+    monkeypatch.setattr(tvor, "_BLOCKED_MIN_VOXELS", blocked_min)
+    before = kernels.counts()
+    got = kernels.voronoi_nearest(*args)
+    assert kernels.counts() == before
+    assert torch.equal(got, tvor.voronoi_map_exact(*args))
+
+
+def test_no_voronoi_kernel_counter_moves_on_the_cpu():
+    """`build_feature_voronoi` on the CPU, exact and by jump flooding: the
+    K4 launch count and shape log stay as they were."""
+    pts = torch.tensor(np.random.default_rng(5).uniform(0, 20, (30, 3)), dtype=torch.float32)
+    before = (kernels.LAUNCHES["voronoi"], dict(kernels.VORONOI_SHAPES))
+    for limit in (10**9, 1):
+        tvor.build_feature_voronoi(pts, torch.ones(30, dtype=torch.bool), exact_max_voxels=limit)
+    assert (kernels.LAUNCHES["voronoi"], kernels.VORONOI_SHAPES) == before
 
 
 def test_lookup_reads_the_built_map():

@@ -221,12 +221,36 @@ def test_kernel_counters_move_by_deltas():
     kernels.K1_SHAPES[(8, 512, 512)] = 3
     kernels.PINV_SHAPES[(8, 12)] = 2
     delta = kernels.counts_since(before)
-    assert delta == ({"normal_equations": 3}, {(8, 512, 512): 3}, {}, {(8, 12): 2})
+    assert delta == ({"normal_equations": 3}, {(8, 512, 512): 3}, {}, {(8, 12): 2}, {})
     kernels.add_counts(delta, -1)  # what a capture counted is taken back
     assert kernels.counts() == before
     kernels.add_counts(delta, 2)  # two replays
     assert kernels.LAUNCHES["normal_equations"] == 6 and kernels.PINV_SHAPES == {(8, 12): 4}
     kernels.reset_launch_counts()
+
+
+def test_voronoi_shapes_survive_the_counter_round_trip():
+    """`VORONOI_SHAPES` moves through `counts()` -> `counts_since()` ->
+    `add_counts()` as the other logs do, the way a capture's launches are
+    taken back and its replays counted."""
+    kernels.reset_launch_counts()
+    kernels.VORONOI_SHAPES[(320, 352, 352, 65536)] = 1
+    kernels.LAUNCHES["voronoi"] = 1
+    before = kernels.counts()
+    assert before[4] == {(320, 352, 352, 65536): 1}
+    kernels.LAUNCHES["voronoi"] += 2
+    kernels.VORONOI_SHAPES[(320, 352, 352, 65536)] += 1
+    kernels.VORONOI_SHAPES[(64, 64, 64, 4096)] = 1
+    delta = kernels.counts_since(before)
+    assert delta == ({"voronoi": 2}, {}, {}, {},
+                     {(320, 352, 352, 65536): 1, (64, 64, 64, 4096): 1})
+    kernels.add_counts(delta, -1)
+    assert kernels.counts() == before
+    kernels.add_counts(delta, 3)
+    assert kernels.LAUNCHES["voronoi"] == 7
+    assert kernels.VORONOI_SHAPES == {(320, 352, 352, 65536): 4, (64, 64, 64, 4096): 3}
+    kernels.reset_launch_counts()
+    assert kernels.counts()[4] == {} and kernels.LAUNCHES["voronoi"] == 0
 
 
 def test_pinv_on_the_cpu_is_the_plain_version():
