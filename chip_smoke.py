@@ -12,6 +12,10 @@ Phases, one line each; any failure raises and exits non-zero:
               median CUDA-event times with the inputs flushed from L2, the
               least time the card could take (`bound_ms`), and the time of
               an empty kernel launched the same way (`launch_floor_ms`);
+              K5 (the ICP's match sampler) against its plain version, bit
+              for bit, at copd512's wave shapes (512 lanes at 1,024 / 2,048
+              / 4,096 / 8,000 matches) through a baked grid of copd512's
+              map, and at 2,048 through the bare map, with times and bound;
   4. slice    the committed bench pair context (bench.py's 64^3 workload)
               is loaded onto the card and `register_locations_staged` serves
               its 64 queries: one warm-up and three timed runs, acceptance
@@ -76,7 +80,9 @@ Phases, one line each; any failure raises and exits non-zero:
               phase 3, at every shape a path launched them at that phase 3
               did not hold; K3 likewise (phase 16's checks), and K4 at every
               map shape and feature count a path launched it at that phase
-              6 did not hold, on features made for the shape.
+              6 did not hold, on features made for the shape; K5 bit for
+              bit at every (lanes, matches, grid or map) a path launched it
+              at that phase 3 did not hold, on inputs made for the shape.
  12. estimate  (printed before phase 11, while phase 6's pair is held) the
               estimate family on the card: `lrr_tpu_torch.cli.main(["estimate",
               ...])` for `icp` and the four CDC methods on phase 5's feature
@@ -97,7 +103,7 @@ Phases, one line each; any failure raises and exits non-zero:
               split (phase 7's selections; >= 12 verified, < 1.0 mm), one
               candidate's ICP with its 8,000-match windows split against the
               one-process run, `cli batch` over phase 10's pairs file (pair
-              11's selections); seconds, backend, peak memory and K1 / K2
+              11's selections); seconds, backend, peak memory and K1 / K2 / K5
               launches and shapes of each rank.  The ranks share the card:
               no scaling figure.
  14. train_verifier  (after phase 8, before phase 9, while phases 5-7's
@@ -141,7 +147,10 @@ Phases, one line each; any failure raises and exits non-zero:
               version and float64 on the 64 systems of one eager bench wave
               and on SPD, rank-deficient and non-finite batches (n 12 at
               L 1 / 8 / 16 / 20 / 24 / 32 / 64, n 6 at L 1 / 8 / 24 / 64), with
-              times, bound and the library call.
+              times, bound and the library call.  Each captured bucket's
+              prologue, chunk and epilogue graphs record 2, 2 x
+              ITERATIONS_PER_CHECK and 2 K5 launches, and in one eager bench
+              run every sampler call is one K5 launch.
 Phase 7 prints, for each query whose best refined candidate lies under 1 mm
 but verified nothing, that candidate's 8 measurements beside the verifier's
 scaling range and the committed corpus's range, and beside its own figures
@@ -181,6 +190,11 @@ BENCH = os.path.join(ROOT, "lrr_tpu_torch", "data", "bench_pair_s64")
 # every one of them
 PINV_PATH_SHAPES: dict[tuple[int, int], dict[str, int]] = {}
 VORONOI_PATH_SHAPES: dict[tuple[int, int, int, int], dict[str, int]] = {}
+# K5's, {(L, m, "grid" | "map"): {path: launches}} (`kernels.SAMPLE_SHAPES`)
+SAMPLE_PATH_SHAPES: dict[tuple[int, int, str], dict[str, int]] = {}
+# K5 measured against its plain version, by "Lxm_kind" (`measure_k5`)
+K5_MEASURED: dict[str, dict] = {}
+K5_CAPS = (1024, 2048, 4096, 8000)  # copd512's wave capacities (its staged schedule)
 # K4 measured against its plain version, by "DxHxWxN" (`measure_k4`)
 K4_MEASURED: dict[str, dict] = {}
 COPD512_MAP = (320, 352, 352)  # the copd512 cells' Voronoi maps (z, y, x) at 1 mm
@@ -231,13 +245,15 @@ class Timer:
 
 
 def note_path_shapes(path: str, delta: tuple | None = None) -> None:
-    """Fold the shapes `path` launched K3 and K4 at (a `kernels.counts()`-
+    """Fold the shapes `path` launched K3, K4 and K5 at (a `kernels.counts()`-
     shaped tuple: a `counts_since` delta or a rank's; by default the
-    counters as they stand) into PINV_PATH_SHAPES and VORONOI_PATH_SHAPES."""
+    counters as they stand) into PINV_PATH_SHAPES, VORONOI_PATH_SHAPES and
+    SAMPLE_PATH_SHAPES."""
     from lrr_tpu_torch.ops import kernels
 
     delta = kernels.counts() if delta is None else delta
-    for logged, into in ((delta[3], PINV_PATH_SHAPES), (delta[4], VORONOI_PATH_SHAPES)):
+    for logged, into in ((delta[3], PINV_PATH_SHAPES), (delta[4], VORONOI_PATH_SHAPES),
+                         (delta[5], SAMPLE_PATH_SHAPES)):
         for shape, n in logged.items():
             by_path = into.setdefault(tuple(shape), {})
             by_path[path] = by_path.get(path, 0) + n
@@ -719,6 +735,149 @@ def k4_inputs(rng, shape: tuple[int, int, int], n: int, dev):
     xyz = torch.tensor(u * half + half + 2.0, dtype=torch.float32, device=dev)
     mask = torch.tensor(rng.uniform(size=n) > 0.15, device=dev)
     return xyz, mask, torch.zeros(3, device=dev), torch.ones(3, device=dev)
+
+
+def k5_key(L: int, m: int, kind: str) -> str:
+    return f"{L}x{m}_{kind}"
+
+
+def sample_shape(key: str) -> tuple[int, int, str]:
+    """A `kernels.SAMPLE_SHAPES` key from its "Lxmxkind" form (phase 13's
+    ranks write them so)."""
+    L, m, kind = key.split("x")
+    return int(L), int(m), kind
+
+
+def k5_inputs(rng, L: int, n: int, shape: tuple[int, int, int], dev, box_mm: float = 50.0):
+    """(src, grid, vor, trans, number, offset, dst_rows) for K5 on a 1 mm map
+    of `shape`: n source and n target features drawn as `k4_inputs` draws
+    them (15 % masked, their rows' tag 0), the targets' exact Voronoi map
+    (K4) and its baked grid; each lane's mask the valid sources in a
+    `box_mm` cube about a random source (a candidate's ROI), its transform a
+    rotation of up to 3 degrees about z and a shift of up to 2 mm about that
+    centre, its window offset below 2^62, its match count 10^9 (every valid
+    source inside the capacity is kept).  The K4 launch is taken back from
+    the counters: it is not a path's."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.models.affine import Affine3D
+    from lrr_tpu_torch.ops import kernels
+
+    before = kernels.counts()
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    def rows(xyz, mask):
+        d = rng.standard_normal((n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        tag = t(rng.integers(1, 4, n)) * mask
+        return torch.cat([xyz, t(rng.uniform(0.5, 5.0, (n, 1))), t(d), tag[:, None]], 1)
+
+    xyz_s, mask_s, origin, spacing = k4_inputs(rng, shape, n, dev)
+    xyz_d, mask_d, _, _ = k4_inputs(rng, shape, n, dev)
+    src_rows, dst_rows = rows(xyz_s, mask_s).contiguous(), rows(xyz_d, mask_d).contiguous()
+    vor = icp.VoronoiGrid(kernels.voronoi_nearest(xyz_d, mask_d, origin, spacing, shape),
+                          origin, spacing)
+    flat = vor.index_vol.reshape(-1).long()
+    grid = torch.where((flat >= 0)[:, None], dst_rows[flat.clamp(min=0)],
+                       torch.zeros((1, 8), device=dev))
+    del flat
+    centers = xyz_s[t(rng.integers(0, n, L), torch.int64)]
+    lane_mask = mask_s[None, :] & ((xyz_s[None, :, :] - centers[:, None, :]).abs()
+                                   <= box_mm / 2).all(-1)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    scores = torch.rand((L, n), generator=gen, device=dev)
+    src = icp._pack_source(scores, src_rows, lane_mask)
+    ang = np.deg2rad(rng.uniform(-3, 3, L))
+    A = np.zeros((L, 3, 3))
+    A[:, 0, 0], A[:, 0, 1] = np.cos(ang), -np.sin(ang)
+    A[:, 1, 0], A[:, 1, 1] = np.sin(ang), np.cos(ang)
+    A[:, 2, 2] = 1.0
+    trans = Affine3D(A=t(A), t=(centers + t(rng.uniform(-2, 2, (L, 3)))).contiguous(),
+                     center=centers.contiguous())
+    number = torch.full((L,), 10**9, dtype=torch.int64, device=dev)
+    offset = t(rng.integers(0, 1 << 62, L), torch.int64)
+    kernels.add_counts(kernels.counts_since(before), -1)
+    return src, grid, vor, trans, number, offset, dst_rows
+
+
+def k5_target_rows(inputs, m: int, kind: str) -> int:
+    """The distinct 32-byte target reads of the window positions [0, m) of
+    `k5_inputs`: grid rows, or without a grid the map's sectors and the
+    feature rows they name (the plain path's voxel ids)."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.ops.voronoi import voxel_ids
+
+    src, _, vor, trans, _, offset, _ = inputs
+    idx = icp._window(src.order, src.valid_count, offset,
+                      torch.arange(m, device=src.order.device))
+    mapped = icp._apply_packed(trans, src.rows[idx].permute(0, 2, 1)[:, 0:3])
+    ids = voxel_ids(tuple(vor.index_vol.shape), vor.origin, vor.spacing, mapped.transpose(1, 2))
+    if kind == "grid":
+        return int(torch.unique(ids).numel())
+    nn = vor.index_vol.reshape(-1)[ids]
+    return int(torch.unique(ids // 8).numel()) + int(torch.unique(nn[nn >= 0]).numel())
+
+
+def measure_k5(timer, inputs, cap: int, kind: str, gather_gb_s: float | None) -> dict:
+    """K5 against its plain version on the card (`icp.sample_matches_plain`)
+    on one set of `k5_inputs`, through the baked grid (`kind` "grid") or the
+    bare map ("map"): bits of all four outputs (twice), the share of window
+    positions kept, times, the bound (`sol.sample_matches_bound_ms` over the
+    distinct target reads) and, with `gather_gb_s`, the same bytes with the
+    target reads priced at that random-row rate.  Its launches here are
+    taken back from the counters: they are not a path's."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.pipeline.wave_graph import first_difference
+    from lrr_tpu_torch.utils import sol
+
+    src, grid, vor, trans, number, offset, dst_rows = inputs
+    L, m = src.order.shape[0], min(cap, src.order.shape[1])
+    args = (src, grid if kind == "grid" else None, vor, trans, number, m, offset)
+    before = kernels.counts()
+
+    def k5():
+        return kernels.sample_matches(*args, dst_rows=dst_rows, p0=0, m=m)
+
+    def plain():
+        return icp.sample_matches_plain(*args, dst_rows=dst_rows, p0=0, m=m)
+
+    got, again, want = k5(), k5(), plain()
+    key = k5_key(L, m, kind)
+    for other, what in ((want, "the plain sampler"), (again, "a second launch")):
+        field = first_difference(got, other)
+        if field is not None:
+            raise AssertionError(f"K5 {key}: output {field} differs from {what}")
+    kept = float(got[3].float().mean())
+    del got, again, want
+    ms = timer.ms(k5)
+    rows = k5_target_rows(inputs, m, kind)
+    bound, by = sol.sample_matches_bound_ms(L, m, src.rows.shape[0], rows)
+    rec = {"lanes": L, "m": m, "kind": kind, "bit_identical": True, "kept_share": kept,
+           "target_reads": rows, "ms": ms, "ms_warm": timer.ms(k5, cold=False),
+           "plain_ms": timer.ms(plain, reps=5), "bound_ms": bound, "bound_by": by,
+           "share_of_bound": bound / ms}
+    if gather_gb_s is not None:
+        rec["random_rows_ms"] = sol.sample_matches_bound_ms(L, m, src.rows.shape[0], rows,
+                                                            gather_gb_s)[0]
+    kernels.add_counts(kernels.counts_since(before), -1)
+    K5_MEASURED[key] = rec
+    return rec
+
+
+def check_k5(rng, dev, timer) -> dict:
+    """K5 at copd512's wave shapes: 512 lanes at each capacity of its
+    schedule through a baked grid of copd512's map (320 x 352 x 352 at 1 mm,
+    65,536 features a side), and at 2,048 through the bare map."""
+    from lrr_tpu_torch.utils import sol
+
+    gather = sol.measured_gather_roofline(dev)["gather_gb_s_dense_big"]
+    inputs = k5_inputs(rng, 512, 65536, COPD512_MAP, dev)
+    out = {k5_key(512, cap, "grid"): measure_k5(timer, inputs, cap, "grid", gather)
+           for cap in K5_CAPS}
+    out[k5_key(512, 2048, "map")] = measure_k5(timer, inputs, 2048, "map", gather)
+    out["gather_gb_s"] = gather
+    del inputs
+    return out
 
 
 def run_stage1_reference(card: str, timer):
@@ -2090,6 +2249,7 @@ def parallel_rank(spec_path: str) -> None:
     k2_shapes: dict[str, int] = {}
     pinv_shapes: dict[str, int] = {}
     voronoi_shapes: dict[str, int] = {}
+    sample_shapes: dict[str, int] = {}
 
     def part(name: str, fn):
         """Run one part with the counts set to 0 just before it and read just
@@ -2113,6 +2273,9 @@ def parallel_rank(spec_path: str) -> None:
         for shape, n in kernels.VORONOI_SHAPES.items():
             key = "x".join(map(str, shape))
             voronoi_shapes[key] = voronoi_shapes.get(key, 0) + n
+        for shape, n in kernels.SAMPLE_SHAPES.items():
+            key = "x".join(map(str, shape))
+            sample_shapes[key] = sample_shapes.get(key, 0) + n
         return out
 
     torch.cuda.reset_peak_memory_stats()
@@ -2261,6 +2424,7 @@ def parallel_rank(spec_path: str) -> None:
 
     rec.update(seconds=seconds, launches=launches, k1_shapes=k1_shapes, k2_shapes=k2_shapes,
                pinv_shapes=pinv_shapes, voronoi_shapes=voronoi_shapes,
+               sample_shapes=sample_shapes,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, problems=problems)
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -2312,7 +2476,7 @@ def run_parallel(seed: int, card: str, digests: dict, served: dict, batch: dict,
             ranks.append(json.load(f))
     problems = [f"rank {rec['rank']}: {x}" for rec in ranks for x in rec["problems"]]
     for rec in ranks:
-        for name in ("normal_equations", "knn"):
+        for name in ("normal_equations", "knn", "sample_matches"):
             if sum(part[name] for part in rec["launches"].values()) <= 0:
                 problems.append(f"rank {rec['rank']}: kernel {name} never launched")
     if ranks[0]["serve"]["selected_equal_phase7"] != ranks[1]["serve"]["selected_equal_phase7"] \
@@ -2334,7 +2498,8 @@ def run_parallel(seed: int, card: str, digests: dict, served: dict, batch: dict,
     for rec in ranks:
         note_path_shapes(f"parallel_rank{rec['rank']}", ({}, {}, {}, *(
             {tuple(int(v) for v in k.split("x")): n for k, n in rec[key].items()}
-            for key in ("pinv_shapes", "voronoi_shapes"))))
+            for key in ("pinv_shapes", "voronoi_shapes")),
+            {sample_shape(k): n for k, n in rec["sample_shapes"].items()}))
     launches = {name: sum(part[name] for rec in ranks for part in rec["launches"].values())
                 for name in ranks[0]["launches"]["serve"]}
     return launches, shapes("k1_shapes"), shapes("k2_shapes")
@@ -2593,7 +2758,7 @@ def run_sol(seed: int, card: str):
             problems.append(f"{key} = {roof[key]} GB/s, not under the peak {sol.PEAK_HBM_GBS}")
     if not torch.equal(idx, idx_plain):
         problems.append("K2's indices differ from knn_plain's on the report's inputs")
-    for name in ("normal_equations", "knn", "pinv_sym"):  # the report runs no stage 1 (K4)
+    for name in ("normal_equations", "knn", "pinv_sym", "sample_matches"):  # no stage 1 (K4)
         if launches[name] <= 0:
             problems.append(f"kernel {name} was never launched by the report")
     phase("sol", card=card, seconds=seconds, peaks={
@@ -2797,6 +2962,30 @@ def device_busy(wall_fn) -> dict:
             "device_kernels": len(spans)}
 
 
+def k5_graph_launches(problems: list, label: str) -> dict:
+    """K5's launches recorded by each part of each bucket the last served
+    context captured: two a MUSE iteration in the prologue, two an
+    iteration in each chunk (2 x ITERATIONS_PER_CHECK a replay), two for
+    the backward covariance in the epilogue; a part off that is a problem."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.pipeline import wave_graph
+
+    out = {}
+    for graphs in wave_graph._CACHE["graphs"].values():
+        for bucket, b in sorted(graphs.buckets.items()):
+            got = {"prologue": b.prologue.launches[0].get("sample_matches", 0),
+                   "chunks": [g.launches[0].get("sample_matches", 0) for g in b.chunks],
+                   "epilogue": b.epilogue.launches[0].get("sample_matches", 0)}
+            want = {"prologue": 2, "chunks": [2 * icp.ITERATIONS_PER_CHECK] * len(b.chunks),
+                    "epilogue": 2}
+            if got != want:
+                problems.append(f"{label} bucket {bucket}: K5 launches {got}, want {want}")
+            out[str(bucket)] = got
+    if not out:
+        problems.append(f"{label}: no captured bucket to read K5's launches from")
+    return out
+
+
 def run_wave_graphs(seed: int, card: str, served_ref, ref_cfg, timer):
     """Phase 16: the bench context (phase 4's) and phase 7's context at the
     reference constants, each served by the eager waves and by the captured
@@ -2806,7 +2995,7 @@ def run_wave_graphs(seed: int, card: str, served_ref, ref_cfg, timer):
     of the bench for the device's busy share; then K3 against its plain
     version on the systems of one eager bench wave and on synthetic
     batches."""
-    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.estimation import icp, measurements
     from lrr_tpu_torch.models.affine import Affine3D
     from lrr_tpu_torch.ops import kernels
     from lrr_tpu_torch.pipeline import registration, wave_graph
@@ -2833,6 +3022,7 @@ def run_wave_graphs(seed: int, card: str, served_ref, ref_cfg, timer):
                                   ctx.fixed_features.capacity, dev)
 
     bench, g_out, e_out = serve_both_paths(ctx, q, cfg, svm, bench_plan)
+    bench["k5_launches_by_part"] = k5_graph_launches(problems, "bench")
     ref = meta["lrr_tpu_reference"]
     cap = max(1.0, 1.5 * ref["median_gt_error_mm"])
     for path, out in (("graph", g_out), ("eager", e_out)):
@@ -2852,6 +3042,7 @@ def run_wave_graphs(seed: int, card: str, served_ref, ref_cfg, timer):
                                   ctx_r.fixed_features.capacity, dev)
 
     reference, g_ref, e_ref = serve_both_paths(ctx_r, q_r, ref_cfg, svm, ref_plan)
+    reference["k5_launches_by_part"] = k5_graph_launches(problems, "reference")
     for path, out in (("graph", g_ref), ("eager", e_ref)):
         acc = reference[f"{path}_acceptance"] = acceptance_stats(out, queries_r, true_r)
         verified = reference[f"{path}_verified"] = int((out.selected >= 0).sum())
@@ -2861,7 +3052,7 @@ def run_wave_graphs(seed: int, card: str, served_ref, ref_cfg, timer):
     launches = dict(kernels.LAUNCHES)
     k1_shapes, pinv_shapes = dict(kernels.K1_SHAPES), dict(kernels.PINV_SHAPES)
     note_path_shapes("wave_graphs")
-    for name in ("normal_equations", "knn", "pinv_sym"):  # serving runs no stage 1 (K4)
+    for name in ("normal_equations", "knn", "pinv_sym", "sample_matches"):  # no stage 1 (K4)
         if launches[name] <= 0:
             problems.append(f"kernel {name} was never launched on the path")
     for label, rec in (("bench", bench), ("reference", reference)):
@@ -2877,12 +3068,30 @@ def run_wave_graphs(seed: int, card: str, served_ref, ref_cfg, timer):
         systems.append(a.clone())
         return pinv(a, rotations)
 
+    # and every sampler call of that run one K5 launch
+    calls = [0]
+    samplers = {mod: mod._sample_matches_packed for mod in (icp, measurements)}
+
+    def counted(mod):
+        def call(*a, **k):
+            calls[0] += 1
+            return samplers[mod](*a, **k)
+        return call
+
     kernels.pinv_hermitian_small = keep
+    for mod in samplers:
+        mod._sample_matches_packed = counted(mod)
+    k5_before = kernels.LAUNCHES["sample_matches"]
     try:
         with eager_waves():
             registration.register_locations_staged(ctx, q, cfg, svm, bench_plan(0))
     finally:
         kernels.pinv_hermitian_small = pinv
+        for mod, fn in samplers.items():
+            mod._sample_matches_packed = fn
+    k5_per_call = (kernels.LAUNCHES["sample_matches"] - k5_before) / max(calls[0], 1)
+    if calls[0] == 0 or k5_per_call != 1.0:
+        problems.append(f"K5 launches over sampler calls {k5_per_call} ({calls[0]} calls)")
     wave_ata = next(a for a in systems if a.shape[0] == 64 and a.shape[-1] == 12)
     rng = np.random.default_rng(seed + 16)
     k3 = {"bench_wave_64x12": measure_pinv(timer, wave_ata, "bench wave")}
@@ -2894,6 +3103,7 @@ def run_wave_graphs(seed: int, card: str, served_ref, ref_cfg, timer):
             k3[f"{L}x{n}_{kind}"] = rec
     phase("wave_graphs", card=card, iterations_per_check=icp.ITERATIONS_PER_CHECK,
           bench=bench, reference=reference, launches=launches,
+          k5_launches_per_sampler_call=k5_per_call, sampler_calls=calls[0],
           k1_shapes=[{"L": k[0], "M_f": k[1], "M_b": k[2], "launches": n}
                      for k, n in sorted(k1_shapes.items(), key=lambda kv: -kv[1])],
           pinv_shapes=[{"L": k[0], "n": k[1], "launches": n} for k, n in sorted(pinv_shapes.items())],
@@ -2935,7 +3145,9 @@ def main() -> None:
     floor_ms = timer.ms(lambda: native.check(lib.lrr_empty(stream), "empty"), cold=False)
     k1 = check_k1(rng, dev, timer)
     k2 = check_k2(rng, dev, timer)
-    phase("kernels", card=card, launch_floor_ms=floor_ms, normal_equations=k1, knn=k2)
+    k5 = check_k5(rng, dev, timer)
+    phase("kernels", card=card, launch_floor_ms=floor_ms, normal_equations=k1, knn=k2,
+          sample_matches=k5)
 
     launches4, shapes4 = run_slice(args.seed, card)
     (launches5, shapes5), bench = run_stage1_bench(args.seed, card)
@@ -3018,13 +3230,22 @@ def main() -> None:
         if k4_key((D, H, W), n) not in K4_MEASURED:
             k4_added[k4_key((D, H, W), n)] = measure_k4(
                 timer, *k4_inputs(rng, (D, H, W), n, dev), (D, H, W))
+    # K5 against its plain version at every (L, m, kind) a path gave it
+    # that phase 3 did not hold, on a small map with m sources a lane's box
+    k5_added = {}
+    for L, m, kind in sorted(SAMPLE_PATH_SHAPES):
+        if k5_key(L, m, kind) not in K5_MEASURED:
+            k5_added[k5_key(L, m, kind)] = measure_k5(
+                timer, k5_inputs(rng, L, m, (64, 64, 64), dev, box_mm=40.0), m, kind, None)
     phase("kernels_path_shapes", card=card, normal_equations=added, knn=k2_added,
-          pinv_sym=k3_added, voronoi=k4_added,
+          pinv_sym=k3_added, voronoi=k4_added, sample_matches=k5_added,
           launches={k1_key(*shape, True): n for shape, n in sorted(path_shapes.items())},
           knn_launches={k2_key(*shape): n for shape, n in sorted(k2_path_shapes.items())},
           pinv_sym_launches={f"{L}x{n}": by for (L, n), by in sorted(PINV_PATH_SHAPES.items())},
           voronoi_launches={k4_key(shape[:3], shape[3]): by
                             for shape, by in sorted(VORONOI_PATH_SHAPES.items())},
+          sample_matches_launches={k5_key(*shape): by
+                                   for shape, by in sorted(SAMPLE_PATH_SHAPES.items())},
           pinv_sym_unchecked=unchecked)
     if unchecked:
         raise AssertionError(f"kernels_path_shapes: K3 unchecked at {unchecked}")
@@ -3034,6 +3255,7 @@ def main() -> None:
     k1m, k2m, k2r = k1[k1_key(*k1_main, True)], k2["128x128x195_k1"], k2["4096x4096x195_k1"]
     k3m = k3["bench_wave_64x12"]
     k4m = next(rec for rec in K4_MEASURED.values() if tuple(rec["shape"]) == COPD512_MAP)
+    k5m = K5_MEASURED[k5_key(512, 2048, "grid")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": "normal_equations", "route": "cuda",
@@ -3081,6 +3303,21 @@ def main() -> None:
                     for k in ("ms", "plain_ms", "bound_ms", "bound_by", "pairs_per_voxel")},
                  "launches": sum(by.values()), "launches_by_path": by}
              for shape, by in sorted(VORONOI_PATH_SHAPES.items())}},
+        {"name": "sample_matches", "route": "cuda",
+         "source": "lrr_tpu_torch/csrc/sample_matches.cu", "replaces": None,
+         "note": "no Pallas counterpart: lrr_tpu samples the ICP's matches with XLA gathers "
+                 "(`_take_rows8`); the port's plain version is estimation/icp.py::"
+                 "sample_matches_plain, two 32-byte row gathers and ~50 eager launches",
+         "launches": launches["sample_matches"], "bit_identical": True,
+         **{k: k5m[k] for k in ("ms", "ms_warm", "plain_ms", "bound_ms", "bound_by",
+                                "share_of_bound")},
+         "shape": k5_key(512, 2048, "grid") + " (a copd512 wave's second level, copd512's map)",
+         "other_path_shapes": {
+             k5_key(*shape): {
+                 **{k: K5_MEASURED[k5_key(*shape)][k]
+                    for k in ("ms", "plain_ms", "bound_ms", "share_of_bound")},
+                 "launches": sum(by.values()), "launches_by_path": by}
+             for shape, by in sorted(SAMPLE_PATH_SHAPES.items())}},
     ], "launch_floor_ms": floor_ms, "launches_by_path": by_path}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

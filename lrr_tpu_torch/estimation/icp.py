@@ -10,9 +10,10 @@ pipeline/wave_graph.py captures as CUDA graphs on the card).
 
 Per iteration (see the JAX package for the reference citations): forward
 and backward matches from a rolling window of each lane's random source
-permutation, nearest neighbour by one row gather from the baked Voronoi NN
-grid; robust scale (MUSE on iteration 0, RMS after), Beaton-Tukey weights,
-strength and spatial weights with MAD normalisation, weight floor; one
+permutation, nearest neighbour by one row read from the baked Voronoi NN
+grid (on the card both directions' sampling is kernel K5); robust scale
+(MUSE on iteration 0, RMS after), Beaton-Tukey weights, strength and
+spatial weights with MAD normalisation, weight floor; one
 12x12 normal-equation system for the forward parameters from both
 directions (kernel K1, which also normalises the coordinates and reads
 the projector coefficients off the row tag), pseudo-inverse solve;
@@ -131,10 +132,16 @@ class _MatchAxis:
         self.n = 1 if mesh is None else mesh.axis_size(axis)
         self.i = 0 if mesh is None else mesh.axis_index(axis)
 
+    def block(self, cap: int) -> tuple[int, int]:
+        """(first, count) of this rank's window positions of a length-`cap`
+        window."""
+        m = -(-cap // self.n)
+        return self.i * m, m
+
     def positions(self, cap: int, device) -> torch.Tensor:
         """This rank's window positions of a length-`cap` window."""
-        m = -(-cap // self.n)
-        return torch.arange(self.i * m, (self.i + 1) * m, device=device)
+        p0, m = self.block(cap)
+        return torch.arange(p0, p0 + m, device=device)
 
     def reduce(self, *xs: torch.Tensor) -> list[torch.Tensor]:
         """Each partial sum x added over the ranks, in one all-reduce."""
@@ -313,6 +320,40 @@ def _apply_packed(trans: Affine3D, x: torch.Tensor) -> torch.Tensor:
     )
 
 
+def sample_matches_plain(src: _PackedSource, grid: torch.Tensor | None, vor: VoronoiGrid,
+                         trans: Affine3D, number: torch.Tensor, cap: int, offset: torch.Tensor,
+                         *, dst_rows: torch.Tensor | None, p0: int, m: int):
+    """Kernel K5's plain version (`kernels.sample_matches`, which the CPU
+    takes): window positions [p0, p0 + m) of each lane's cyclic window of
+    capacity `cap` (at most the permutation's length), the source rows under
+    the lane's mask, mapped through `trans` and matched by one row gather
+    from the baked grid (empty voxels carry tag 0), or without a grid the
+    voxel's feature index read from the map and the row taken from
+    `dst_rows` (an empty voxel gets the zero row the grid would hold, so
+    both give the same rows).  Returns the matches' rows src, dst [L, m, 8]
+    (src column 7 the tag under the lane's mask), the weight and the mask
+    [L, m] of the kept matches."""
+    pos = torch.arange(p0, p0 + m, device=src.order.device)
+    idx = _window(src.order, src.valid_count, offset, pos)
+    s = src.rows[idx]  # [L, m, 8]
+    s[..., 7] = torch.where(src.lane_mask.gather(1, idx), s[..., 7],
+                            torch.zeros_like(s[..., 7]))
+    limit = torch.clamp(torch.minimum(number, src.valid_count), max=cap)
+    sel = (pos[None, :] < limit[:, None]) & (s[..., 7] > 0.5)
+
+    mapped = _apply_packed(trans, s.permute(0, 2, 1)[:, 0:3])
+    ids = voxel_ids(tuple(vor.index_vol.shape), vor.origin, vor.spacing,
+                    mapped.transpose(1, 2))
+    if grid is not None:
+        to_rows = grid[ids]
+    else:
+        nn = vor.index_vol.reshape(-1)[ids]
+        to_rows = dst_rows[torch.clamp(nn, min=0).long()]
+        to_rows = torch.where((nn >= 0)[..., None], to_rows, torch.zeros_like(to_rows))
+    ok = sel & (to_rows[..., 7] > 0.5)
+    return s, to_rows, ok.to(s.dtype), ok
+
+
 def _sample_matches_packed(
     src: _PackedSource,
     grid: torch.Tensor | None,  # [V, 8], or None: match through the index map
@@ -326,38 +367,23 @@ def _sample_matches_packed(
     mx: _MatchAxis = _WHOLE,
 ) -> PackedMatches:
     """A window of `cap` source rows per lane, mapped through `trans` and
-    matched by one row gather from the baked grid (empty voxels carry tag 0
-    and drop out through the mask).  Without a grid the voxel's feature
-    index is read from the map and the row taken from `dst_rows`; an empty
-    voxel gets the zero row the grid would hold, so both give the same
-    rows.  With `mx` split over ranks, this rank's block of the window."""
+    matched through the target's map (`sample_matches_plain`): one K5
+    launch on the card.  With `mx` split over ranks, this rank's block of
+    the window.  The fields are component-major views of the [L, M, 8]
+    rows: the later sums over the matches take their order from that
+    layout."""
     cap = min(cap, src.order.shape[1])
-    pos = mx.positions(cap, src.order.device)
-    idx = _window(src.order, src.valid_count, offset, pos)
-    rows = src.rows[idx]  # [L, m, 8]
-    tag = torch.where(
-        src.lane_mask.gather(1, idx), rows[..., 7], torch.zeros_like(rows[..., 7])
+    p0, m = mx.block(cap)
+    trans = Affine3D(A=trans.A.contiguous(), t=trans.t.contiguous(),
+                     center=trans.center.contiguous())
+    s, d, weight, ok = kernels.sample_matches(
+        src, grid, vor, trans, number.to(torch.int64).contiguous(), cap,
+        offset.to(torch.int64).contiguous(), dst_rows=dst_rows, p0=p0, m=m,
     )
-    win = rows.permute(0, 2, 1)
-    fxyz = win[:, 0:3]
-    limit = torch.clamp(torch.minimum(number, src.valid_count), max=cap)
-    sel = (pos[None, :] < limit[:, None]) & (tag > 0.5)
-
-    mapped = _apply_packed(trans, fxyz)
-    ids = voxel_ids(tuple(vor.index_vol.shape), vor.origin, vor.spacing,
-                    mapped.transpose(1, 2))
-    if grid is not None:
-        to_rows = grid[ids]
-    else:
-        nn = vor.index_vol.reshape(-1)[ids]
-        to_rows = dst_rows[torch.clamp(nn, min=0).long()]
-        to_rows = torch.where((nn >= 0)[..., None], to_rows, torch.zeros_like(to_rows))
-    to_row = to_rows.permute(0, 2, 1)  # [L, 8, m]
-    ok = sel & (to_row[:, 7] > 0.5)
+    s, d = s.permute(0, 2, 1), d.permute(0, 2, 1)  # [L, 8, M] views
     return PackedMatches(
-        fxyz=fxyz, fstr=win[:, 3], txyz=to_row[:, 0:3], tstr=to_row[:, 3],
-        tdir=to_row[:, 4:7], ttag=to_row[:, 7], fdir=win[:, 4:7], ftag=tag,
-        weight=ok.to(fxyz.dtype), mask=ok,
+        fxyz=s[:, 0:3], fstr=s[:, 3], txyz=d[:, 0:3], tstr=d[:, 3], tdir=d[:, 4:7],
+        ttag=d[:, 7], fdir=s[:, 4:7], ftag=s[:, 7], weight=weight, mask=ok,
     )
 
 

@@ -15,14 +15,18 @@
   K4 `voronoi_nearest` — stage 1's exact nearest-valid-feature index map
      (no Pallas counterpart: lrr_tpu builds it with XLA ops; its plain
      versions are ops/voronoi.py's exact builds); source csrc/voronoi.cu.
+  K5 `sample_matches` — the ICP's match sampler, one direction of one
+     iteration (no Pallas counterpart: lrr_tpu samples with XLA gathers; its
+     plain version is estimation/icp.py::sample_matches_plain); source
+     csrc/sample_matches.cu.
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  `LAUNCHES` counts kernel
 launches (never plain-version calls) so a run can show that its path went
 through the kernels; `K1_SHAPES` and `K2_SHAPES` log which shapes they were
-launched at, `PINV_SHAPES` K3's, `VORONOI_SHAPES` K4's.  These are Python
-counters: a replayed CUDA graph moves them through `add_counts`
-(pipeline/wave_graph.py).
+launched at, `PINV_SHAPES` K3's, `VORONOI_SHAPES` K4's, `SAMPLE_SHAPES`
+K5's.  These are Python counters: a replayed CUDA graph moves them through
+`add_counts` (pipeline/wave_graph.py).
 """
 
 from __future__ import annotations
@@ -35,11 +39,12 @@ from lrr_tpu_torch.ops import native
 
 KMAX = 128  # largest k the k-NN kernel keeps (the TPU kernel's lane width)
 
-LAUNCHES = {"normal_equations": 0, "knn": 0, "pinv_sym": 0, "voronoi": 0}
+LAUNCHES = {"normal_equations": 0, "knn": 0, "pinv_sym": 0, "voronoi": 0, "sample_matches": 0}
 K1_SHAPES: dict[tuple[int, int, int], int] = {}  # (L, M_f, M_b) -> launches
 K2_SHAPES: dict[tuple[int, int, int, int], int] = {}  # (Q, N, D, k) -> launches
 PINV_SHAPES: dict[tuple[int, int], int] = {}  # (L, n) -> launches
 VORONOI_SHAPES: dict[tuple[int, int, int, int], int] = {}  # (D, H, W, N) -> launches
+SAMPLE_SHAPES: dict[tuple[int, int, str], int] = {}  # (L, m, "grid" | "map") -> launches
 PINV_MAX_N = 12  # the largest matrix K3 takes
 
 
@@ -51,12 +56,12 @@ def reset_launch_counts() -> None:
 
 
 def _counters() -> tuple[dict, ...]:
-    return LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES, VORONOI_SHAPES
+    return LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES, VORONOI_SHAPES, SAMPLE_SHAPES
 
 
 def counts() -> tuple[dict, ...]:
     """A copy of every counter: (LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES,
-    VORONOI_SHAPES)."""
+    VORONOI_SHAPES, SAMPLE_SHAPES)."""
     return tuple(dict(c) for c in _counters())
 
 
@@ -418,3 +423,78 @@ def voronoi_nearest(
     shape = (D, H, W, N)
     VORONOI_SHAPES[shape] = VORONOI_SHAPES.get(shape, 0) + 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K5: the ICP's match sampler
+# ---------------------------------------------------------------------------
+
+
+def sample_matches(src, grid, vor, trans, number, cap: int, offset, *, dst_rows, p0: int,
+                   m: int):
+    """K5.  Window positions [p0, p0 + m) of each lane's cyclic window of
+    capacity `cap` over its permutation `src.order` (from `offset`), the
+    source rows `src.rows` under `src.lane_mask`, mapped through `trans`
+    (an `Affine3D` of L lanes) into `vor`'s map and matched by the target
+    row there: `grid`'s, or without a grid `dst_rows`' row of the voxel's
+    feature in `vor.index_vol`.  Returns (src [L, m, 8], dst [L, m, 8],
+    weight [L, m], mask [L, m]) as `icp.sample_matches_plain`, its plain
+    version, which the CPU takes.  On the card every tensor is contiguous:
+    order, valid count, offset and number int64, the masks bool, the map
+    int32, everything else float32, with no host read."""
+    dev = src.order.device
+    if dev.type == "cpu":
+        from lrr_tpu_torch.estimation import icp
+
+        return icp.sample_matches_plain(src, grid, vor, trans, number, cap, offset,
+                                        dst_rows=dst_rows, p0=p0, m=m)
+    if dev.type != "cuda":
+        raise ValueError(f"sample_matches: unsupported device {dev}")
+    L, cols = src.order.shape
+    D, H, W = (int(n) for n in vor.index_vol.shape)
+    shapes = ((src.lane_mask, (L, src.lane_mask.shape[1])), (src.valid_count, (L,)),
+              (offset, (L,)), (number, (L,)), (trans.A, (L, 3, 3)), (trans.t, (L, 3)),
+              (trans.center, (L, 3)), (vor.origin, (3,)), (vor.spacing, (3,)),
+              (src.rows, (src.rows.shape[0], 8)))
+    if grid is not None:
+        shapes += ((grid, (D * H * W, 8)),)
+    elif dst_rows is None:
+        raise ValueError("sample_matches: without a grid the target rows are needed")
+    else:
+        shapes += ((dst_rows, (dst_rows.shape[0], 8)),)
+    for t, shape in shapes:
+        if t.dim() != len(shape) or tuple(t.shape) != shape:
+            raise ValueError(f"sample_matches: shape {tuple(t.shape)}, want {shape}")
+    if not (0 <= p0 and 0 <= m and 0 <= cap <= cols and L <= 65535):
+        raise ValueError(f"sample_matches: window p0={p0}, m={m}, cap={cap} of {cols}, L={L}")
+    _check_cuda("sample_matches", torch.int64, dev, src.order, src.valid_count, offset, number)
+    _check_cuda("sample_matches", torch.bool, dev, src.lane_mask)
+    _check_cuda("sample_matches", torch.int32, dev, vor.index_vol)
+    _check_cuda("sample_matches", torch.float32, dev, src.rows, trans.A, trans.t,
+                trans.center, vor.origin, vor.spacing,
+                *((grid,) if grid is not None else (dst_rows,)))
+    for t in (src.rows, grid if grid is not None else dst_rows):
+        if t.data_ptr() % 16:
+            raise ValueError("sample_matches: row tables must be 16-byte aligned")
+    rows = torch.empty((2, L, m, 8), dtype=torch.float32, device=dev)
+    weight = torch.empty((L, m), dtype=torch.float32, device=dev)
+    mask = torch.empty((L, m), dtype=torch.bool, device=dev)
+    if L > 0 and m > 0:
+        native.check(
+            native.library().lrr_sample_matches(
+                src.order.data_ptr(), src.rows.data_ptr(), src.lane_mask.data_ptr(),
+                src.valid_count.data_ptr(), offset.data_ptr(), number.data_ptr(),
+                trans.A.data_ptr(), trans.t.data_ptr(), trans.center.data_ptr(),
+                vor.origin.data_ptr(), vor.spacing.data_ptr(),
+                None if grid is None else grid.data_ptr(), vor.index_vol.data_ptr(),
+                None if dst_rows is None else dst_rows.data_ptr(), rows[0].data_ptr(),
+                rows[1].data_ptr(), weight.data_ptr(), mask.data_ptr(), cols,
+                src.lane_mask.shape[1], L, m, p0, cap, D, H, W,
+                torch.cuda.current_stream(dev).cuda_stream,
+            ),
+            "sample_matches",
+        )
+        LAUNCHES["sample_matches"] += 1
+        shape = (L, m, "map" if grid is None else "grid")
+        SAMPLE_SHAPES[shape] = SAMPLE_SHAPES.get(shape, 0) + 1
+    return rows[0], rows[1], weight, mask

@@ -33,6 +33,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # pointers (host array of 17 device pointers), strides (host array of
     # 26 element strides), L, M_f, M_b, stream
@@ -50,6 +51,10 @@ _SIGNATURES = {
     # xyz, mask, origin, spacing, packed, count, out, stats (or null), n, D,
     # H, W, stream
     "lrr_voronoi_nearest": [_P] * 8 + [_I] * 4 + [_P],
+    # order, rows, lane_mask, valid, offset, number, A, t, center, origin,
+    # spacing, grid (or null), index_vol, dst_rows, src, dst, weight, mask,
+    # order_cols, mask_cols, L, m, p0, cap, D, H, W, stream
+    "lrr_sample_matches": [_P] * 18 + [_LL] * 2 + [_I] * 2 + [_LL] * 2 + [_I] * 3 + [_P],
     # stream: an empty kernel, for the launch floor
     "lrr_empty": [_P],
 }

@@ -7,8 +7,8 @@ for the same work, so that "fast" is a number and not a claim.
 `icp_iteration_sol` times one whole symmetric ICP iteration over a wave of
 candidate lanes, the unit the serving path repeats 50-70 times a wave: the
 port's own `_sample_matches_packed` (a window of each lane's source rows,
-mapped, matched by one row gather from the baked Voronoi grid, both
-directions) chained into `_estimate_ls_packed` (robust weighting, then K1 and
+mapped, matched by one row read from the baked Voronoi grid, both
+directions; kernel K5 on the card) chained into `_estimate_ls_packed` (robust weighting, then K1 and
 the 12x12 solve).  Iterations are dependent: each feeds its transform to the
 next, as in the serving loop.  A sampling-only ablation splits the iteration
 into its gather and estimate segments.  The inputs are lrr_tpu's synthetic
@@ -29,6 +29,9 @@ each), where lrr_tpu ran the loop inside one compiled program.
 `device_ms_per_iter`, the summed time of the device's kernels in the timed
 loop (`torch.profiler`), tells the kernels' own distance to light from the
 host's share of the iteration.
+
+`sample_matches_bound_ms` is K5's least time by bytes over the distinct
+target rows its windows read.
 
 `kernel_sol_report` gives the iteration at lrr_tpu's two wave shapes and the
 195-d descriptor nearest neighbour at 4096 x 4096 through K2, with the
@@ -110,6 +113,29 @@ def voronoi_bound_ms(n_vox: int, n: int, pairs: int) -> tuple[float, str]:
     read and the int32 map written once, and the plain distance's 8 fp32
     operations (3 subtracts, 3 multiplies, 2 adds) a pair evaluated."""
     return _bound(13 * n + 24 + 4 * n_vox, 8 * pairs)
+
+
+# a window position's bytes that K5 must move: its permutation entry (8)
+# read, its two rows (2 x 32), weight (4) and mask byte written
+SAMPLE_POSITION_BYTES = 8 + 2 * ROW_BYTES + 4 + 1
+
+
+def sample_matches_bound_ms(lanes: int, m: int, n_src: int, target_rows: int,
+                            gather_gb_s: float | None = None) -> tuple[float, str]:
+    """K5's least time for `lanes` x `m` window positions over a source
+    table of `n_src` rows whose matches read `target_rows` distinct target
+    rows (grid rows, or without a grid the map sectors and feature rows):
+    every position's `SAMPLE_POSITION_BYTES`, the source table and each
+    distinct target row (32 bytes) moved once, at the streaming peak (the
+    lane-mask bytes, at most one a position, are left out).  With
+    `gather_gb_s` the target rows are priced at that random-row rate
+    instead (`measured_gather_roofline`'s, PyTorch's own gathers): what the
+    reads would cost if no two positions shared a sector's neighbourhood, a
+    yardstick K5 can beat, not a bound."""
+    stream = lanes * m * SAMPLE_POSITION_BYTES + n_src * ROW_BYTES
+    rate = PEAK_HBM_GBS if gather_gb_s is None else gather_gb_s
+    ms = (target_rows * ROW_BYTES / (rate * 1e9) + stream / (PEAK_HBM_GBS * 1e9)) * 1e3
+    return ms, "bytes"
 
 
 # ---------------------------------------------------------------------------

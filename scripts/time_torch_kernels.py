@@ -16,7 +16,13 @@ of normalised points); both read the same number of matches.  The exact
 Voronoi map at copd512's shape (320 x 352 x 352 at 1 mm, 65,536 features in
 an ellipsoid) is timed through K4 (`voronoi_nearest`, with its bound from the
 pairs it evaluated) where the checkout has it, and through the plain blocked
-build always (5 timings: it takes about a second).  Prints one JSON line.
+build always (5 timings: it takes about a second).  The ICP's match sampler
+is timed at copd512's wave shapes (512 lanes at 1,024 / 2,048 / 4,096 / 8,000
+matches on a baked grid of copd512's map, `chip_smoke.k5_inputs`) through the
+checkout's `_sample_matches_packed` (one direction, as the ICP calls it),
+and where the checkout has K5 also through `kernels.sample_matches` and its
+plain version `icp.sample_matches_plain`, with K5's bound over the distinct
+target rows the windows read.  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ def main() -> None:
     def both(fn):
         return {"cold_us": 1e3 * timer.ms(fn), "warm_us": 1e3 * timer.ms(fn, cold=False)}
 
-    out = {"card": card, "root": os.path.abspath(args.root), "k1": {}, "k2": {}, "k4": {}}
+    out = {"card": card, "root": os.path.abspath(args.root), "k1": {}, "k2": {}, "k4": {},
+           "sampler": {}}
     for L, M in [(64, 1024), (64, 2048), (64, 4096)]:
         fwd, bwd = cs.k1_direction(rng, L, M, dev), cs.k1_direction(rng, L, M, dev)
         frame = cs.k1_frame(rng, L, dev)
@@ -98,6 +105,28 @@ def main() -> None:
         bound_ms, by = sol.voronoi_bound_ms(math.prod(cs.COPD512_MAP), 65536, pairs)
         out["k4"].update(both(lambda: kernels.voronoi_nearest(*vor_args)), pairs=pairs,
                          bound_us=1e3 * bound_ms, bound_by=by)
+    del vor_args
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.utils import sol
+
+    src, grid, vor, trans, number, offset, dst_rows = cs.k5_inputs(
+        rng, 512, 65536, cs.COPD512_MAP, dev)
+    gather = sol.measured_gather_roofline(dev)["gather_gb_s_dense_big"]
+    out["sampler"]["gather_gb_s"] = gather
+    for cap in cs.K5_CAPS:
+        args = (src, grid, vor, trans, number, cap, offset)
+        rec = {"sampler": both(lambda: icp._sample_matches_packed(*args, dst_rows=dst_rows))}
+        if hasattr(kernels, "sample_matches"):
+            rec["k5"] = both(lambda: kernels.sample_matches(*args, dst_rows=dst_rows, p0=0, m=cap))
+            rec["plain_us"] = 1e3 * timer.ms(
+                lambda: icp.sample_matches_plain(*args, dst_rows=dst_rows, p0=0, m=cap), reps=5)
+            rows = cs.k5_target_rows((src, grid, vor, trans, number, offset, dst_rows), cap,
+                                     "grid")
+            rec["target_reads"] = rows
+            rec["bound_us"] = 1e3 * sol.sample_matches_bound_ms(512, cap, 65536, rows)[0]
+            rec["random_rows_us"] = 1e3 * sol.sample_matches_bound_ms(512, cap, 65536, rows,
+                                                                      gather)[0]
+        out["sampler"][f"512x{cap}_grid"] = rec
     print(json.dumps(out), flush=True)
 
 

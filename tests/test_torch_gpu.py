@@ -1242,3 +1242,216 @@ def test_a_traced_bucket_gives_the_rows_of_an_untraced_one(cuda):
     ranges = {e.name for e in prof.events()}
     for n in ("wave.build.capture", "wave.replay", "wave.flags", "inside_capture"):
         assert "lrr_test." + n in ranges
+
+
+# ---------------------------------------------------------------------------
+# K5 (csrc/sample_matches.cu): the ICP's match sampler
+# ---------------------------------------------------------------------------
+
+
+def _k5_case(cuda, L=24, n_src=3000, n_dst=2500, shape=(40, 48, 56), seed=0):
+    """(src, grid, vor, trans, number, offset, dst_rows) on the card: rows
+    with every tag (0 = padding), a quarter of the sources on exact half-
+    voxel coordinates (ties for the half-to-even rounding); lane 0's mask
+    empty (valid count 0), lane 1's one feature; an index map with 20 %
+    empty voxels and its baked grid; transforms near the identity, lane 2's
+    the identity (the ties stay ties), lane 3's far outside the map (every
+    voxel clamped); offsets up to 2^62."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.models.affine import Affine3D
+
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt, device=cuda)
+    D, H, W = shape
+    origin, spacing = np.array([0.25, -1.0, 2.0]), np.array([0.5, 1.0, 2.0])
+    top = origin + (np.array([W, H, D]) - 1) * spacing
+
+    def rows(n, ties):
+        xyz = rng.uniform(origin - 3, top + 3, (n, 3))
+        k = rng.integers(0, [W - 1, H - 1, D - 1], (ties, 3))
+        xyz[:ties] = origin + (k + 0.5) * spacing
+        d = rng.standard_normal((n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        return t(np.concatenate([xyz, rng.uniform(0, 5, (n, 1)), d,
+                                 rng.integers(0, 4, (n, 1))], 1))
+
+    src_rows, dst_rows = rows(n_src, n_src // 4), rows(n_dst, 0)
+    lane_mask = rng.uniform(size=(L, n_src)) < 0.7
+    lane_mask[0] = False
+    lane_mask[1] = False
+    lane_mask[1, 17] = True
+    src = icp._pack_source(t(rng.uniform(size=(L, n_src))), src_rows, t(lane_mask, torch.bool))
+    index = rng.integers(0, n_dst, shape)
+    index[rng.uniform(size=shape) < 0.2] = -1
+    vor = icp.VoronoiGrid(t(index, torch.int32), t(origin), t(spacing))
+    flat = vor.index_vol.reshape(-1).long()
+    grid = torch.where((flat >= 0)[:, None], dst_rows[flat.clamp(min=0)],
+                       torch.zeros((1, 8), device=cuda))
+    A = np.eye(3) + 0.03 * rng.standard_normal((L, 3, 3))
+    tr = rng.uniform(-2, 2, (L, 3))
+    center = rng.uniform(origin, top, (L, 3))
+    A[2], tr[2], center[2] = np.eye(3), 0.0, 0.0
+    tr[3] = [900.0, -700.0, 1e4]
+    trans = Affine3D(A=t(A), t=t(tr), center=t(center))
+    number = t(rng.integers(0, 10000, L), torch.int64)
+    number[-1] = 1 << 40
+    offset = t(rng.integers(0, 1 << 62, L), torch.int64)
+    return src, grid, vor, trans, number, offset, dst_rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["grid", "map"])
+@pytest.mark.parametrize("cap,n_src,ranks,rank", [
+    (1024, 3000, 1, 0), (2048, 3000, 1, 0), (4096, 3000, 1, 0), (8000, 9000, 1, 0),
+    (8000, 9000, 3, 1), (8000, 9000, 3, 2), (2048, 3000, 2, 1)])
+def test_sample_matches_kernel_equals_the_plain_sampler(cuda, path, cap, n_src, ranks, rank):
+    """K5 against `icp.sample_matches_plain` on the card, bit for bit in the
+    four outputs, on the grid and the bare-map paths: capacities of 1,024 to
+    8,000 (4,096 over 3,000 sources is cut to 3,000; 8,000 is ragged at 256
+    threads a block), mesh blocks with p0 > 0 (the last padded past the
+    capacity), valid counts 0 and 1, offsets up to 2^62, points mapped
+    outside the map, empty voxels and half-voxel ties.  One launch a call,
+    logged at its shape; two launches alike."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.pipeline.wave_graph import first_difference
+
+    src, grid, vor, trans, number, offset, dst_rows = _k5_case(cuda, n_src=n_src)
+    grid = grid if path == "grid" else None
+    c = min(cap, n_src)
+    m = -(-c // ranks)
+    args = (src, grid, vor, trans, number, c, offset)
+    before = kernels.counts()
+    got = kernels.sample_matches(*args, dst_rows=dst_rows, p0=rank * m, m=m)
+    launches, shapes = (kernels.counts_since(before)[i] for i in (0, 5))
+    assert launches == {"sample_matches": 1} and shapes == {(24, m, path): 1}
+    want = icp.sample_matches_plain(*args, dst_rows=dst_rows, p0=rank * m, m=m)
+    assert first_difference(got, want) is None
+    assert first_difference(kernels.sample_matches(*args, dst_rows=dst_rows, p0=rank * m, m=m),
+                            got) is None
+    s, d, weight, ok = got
+    assert not bool(ok[0].any()) and int(ok[1].sum()) <= 1
+    assert bool(ok.any()) == (rank * m < c)
+    assert bool((d[..., 7] == 0).any())  # empty voxels (tag 0) met
+
+
+@pytest.mark.gpu
+def test_sample_matches_kernel_refuses_bad_inputs(cuda):
+    """Wrong dtype, device, shape or contiguity raises before a launch, as
+    does a grid-less call without target rows or a window past the
+    permutation."""
+    import dataclasses
+
+    from lrr_tpu_torch.models.affine import Affine3D
+
+    src, grid, vor, trans, number, offset, dst_rows = _k5_case(cuda, L=4)
+    ok = (src, grid, vor, trans, number, 1024, offset)
+    kernels.sample_matches(*ok, dst_rows=None, p0=0, m=1024)
+    bad = [
+        (dataclasses.replace(src, order=src.order.int()),) + ok[1:],
+        (dataclasses.replace(src, lane_mask=src.lane_mask.float()),) + ok[1:],
+        (dataclasses.replace(src, rows=src.rows.cpu()),) + ok[1:],
+        (dataclasses.replace(src, rows=src.rows[:, :7]),) + ok[1:],
+        ok[:1] + (grid.double(),) + ok[2:],
+        ok[:1] + (grid[:-1],) + ok[2:],
+        ok[:2] + (dataclasses.replace(vor, index_vol=vor.index_vol.long()),) + ok[3:],
+        ok[:3] + (Affine3D(trans.A.transpose(1, 2), trans.t, trans.center),) + ok[4:],
+        ok[:3] + (Affine3D(trans.A[:3], trans.t[:3], trans.center[:3]),) + ok[4:],
+        ok[:4] + (number.int(),) + ok[5:],
+        ok[:6] + (torch.stack([offset, offset], 1)[:, 0],),
+        ok[:1] + (None,) + ok[2:],
+        ok[:5] + (5000,) + ok[6:],
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            kernels.sample_matches(*args, dst_rows=None, p0=0, m=1024)
+
+
+@pytest.mark.gpu
+def test_sample_matches_kernel_on_both_transforms_of_a_wave(cuda, monkeypatch):
+    """A bench wave's refinement after its MUSE iteration: K5 equals the
+    plain sampler on the forward transform (moving sources, fixed grid) and
+    the inverse (fixed sources, moving grid), through the grids and the bare
+    maps.  One `Refinement.step` launches K5 twice, one a direction; over an
+    eager served run every sampler call is one launch."""
+    from lrr_tpu_torch.estimation import icp, measurements
+    from lrr_tpu_torch.pipeline import registration
+    from lrr_tpu_torch.pipeline.wave_graph import first_difference
+
+    ctx, q, cfg, plan = _bench(cuda)
+    _, inits, *_ = registration._pass1_fn(ctx, q, cfg, plan)
+    lanes = torch.arange(16, device=cuda)
+    cands = torch.zeros_like(lanes)
+    r, c, _ = registration._wave_prologue(
+        ctx, cfg, *registration._wave_inputs(q, inits, plan, lanes, cands))
+    cap = r.caps[-1]
+    offs = r.draws.offsets_f[:, 3].contiguous()
+    for src, grid, vor, trans, dst in (
+            (r.src_m, r.fixed_grid, r.fixed_vor, c.trans, r.src_f.rows),
+            (r.src_f, r.moving_grid, r.moving_vor, c.trans.inverse(), r.src_m.rows)):
+        trans = icp.Affine3D(trans.A.contiguous(), trans.t.contiguous(),
+                             trans.center.contiguous())
+        for g in (grid, None):
+            args = (src, g, vor, trans, c.number_matches, min(cap, src.order.shape[1]), offs)
+            m = args[5]
+            got = kernels.sample_matches(*args, dst_rows=dst, p0=0, m=m)
+            assert first_difference(got, icp.sample_matches_plain(
+                *args, dst_rows=dst, p0=0, m=m)) is None
+            assert bool(got[3].any())
+
+    before = kernels.counts()
+    r.step(c, 0)
+    delta = kernels.counts_since(before)
+    assert delta[0]["sample_matches"] == 2 and sum(delta[5].values()) == 2
+
+    calls = [0]
+    for mod in (icp, measurements):
+        real = mod._sample_matches_packed
+
+        def counted(*a, _real=real, **k):
+            calls[0] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(mod, "_sample_matches_packed", counted)
+    monkeypatch.setattr(registration, "_wave_runner", registration._eager_wave_runner)
+    n0 = kernels.LAUNCHES["sample_matches"]
+    register_locations_staged(ctx, q, cfg, load_default_verifier(), plan)
+    assert calls[0] > 0 and kernels.LAUNCHES["sample_matches"] - n0 == calls[0]
+
+
+@pytest.mark.gpu
+def test_a_copd512_sized_bucket_replays_the_eager_waves_bits(cuda):
+    """A 512-lane wave at the reference constants (65,536 features, 8,000
+    matches) on a dense phantom of copd512's map size (320 x 320 x 302 at
+    1 mm): the captured bucket's rows equal `_wave_fn`'s eager rows bit for
+    bit; each chunk graph records 2 x ITERATIONS_PER_CHECK K5 launches, the
+    prologue and the epilogue two each."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.pipeline import registration, wave_graph
+    from lrr_tpu_torch.verify import train_default
+
+    cfg = train_default.reference_cfg()
+    fixed, moving, _ = make_pair((302, 320, 320), rotation_deg=6.0,
+                                 translation=(3.0, -2.0, 1.5), seed=5, noise=0.5, dense=True,
+                                 device=cuda)
+    ctx = prepare_pair(moving, fixed, cfg)
+    del fixed, moving
+    svm = load_default_verifier()
+    q = torch.tensor(np.random.default_rng(2).uniform([100, 100, 90], [220, 220, 210], (64, 3)),
+                     dtype=torch.float32, device=cuda)
+    plan = draw_sampling_plan(torch.Generator().manual_seed(6), len(q), cfg,
+                              ctx.moving_features.capacity, ctx.fixed_features.capacity, cuda)
+    cmask, inits, _, enough, *_ = registration._pass1_fn(ctx, q, cfg, plan)
+    usable = (cmask & enough).nonzero()
+    assert len(usable) >= 512
+    lanes, cands = usable[:512, 0], usable[:512, 1]
+    wave_graph.drop()
+    graphs = wave_graph.wave_graphs(ctx, cfg, svm, registration.WAVE_STEPS)
+    got = graphs.run(q, inits, plan, lanes, cands)
+    want = registration._wave_fn(ctx, q, cfg, svm.to(cuda), inits, plan, lanes, cands)
+    assert wave_graph.first_difference(got, want) is None
+    b = graphs.buckets[512]
+    assert b.prologue.launches[0]["sample_matches"] == 2
+    assert b.epilogue.launches[0]["sample_matches"] == 2
+    for g in b.chunks:
+        assert g.launches[0]["sample_matches"] == 2 * icp.ITERATIONS_PER_CHECK
+    wave_graph.drop()

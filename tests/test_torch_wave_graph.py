@@ -221,7 +221,7 @@ def test_kernel_counters_move_by_deltas():
     kernels.K1_SHAPES[(8, 512, 512)] = 3
     kernels.PINV_SHAPES[(8, 12)] = 2
     delta = kernels.counts_since(before)
-    assert delta == ({"normal_equations": 3}, {(8, 512, 512): 3}, {}, {(8, 12): 2}, {})
+    assert delta == ({"normal_equations": 3}, {(8, 512, 512): 3}, {}, {(8, 12): 2}, {}, {})
     kernels.add_counts(delta, -1)  # what a capture counted is taken back
     assert kernels.counts() == before
     kernels.add_counts(delta, 2)  # two replays
@@ -243,7 +243,7 @@ def test_voronoi_shapes_survive_the_counter_round_trip():
     kernels.VORONOI_SHAPES[(64, 64, 64, 4096)] = 1
     delta = kernels.counts_since(before)
     assert delta == ({"voronoi": 2}, {}, {}, {},
-                     {(320, 352, 352, 65536): 1, (64, 64, 64, 4096): 1})
+                     {(320, 352, 352, 65536): 1, (64, 64, 64, 4096): 1}, {})
     kernels.add_counts(delta, -1)
     assert kernels.counts() == before
     kernels.add_counts(delta, 3)
