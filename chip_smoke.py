@@ -14,8 +14,8 @@ Phases, one line each; any failure raises and exits non-zero:
               an empty kernel launched the same way (`launch_floor_ms`);
               K5 (the ICP's match sampler) against its plain version, bit
               for bit, at copd512's wave shapes (512 lanes at 1,024 / 2,048
-              / 4,096 / 8,000 matches) through a baked grid of copd512's
-              map, and at 2,048 through the bare map, with times and bound;
+              / 4,096 / 8,000 matches) through copd512's map, with times
+              and bound;
   4. slice    the committed bench pair context (bench.py's 64^3 workload)
               is loaded onto the card and `register_locations_staged` serves
               its 64 queries: one warm-up and three timed runs, acceptance
@@ -47,16 +47,14 @@ Phases, one line each; any failure raises and exits non-zero:
               three timed runs: seconds, waves, acceptance against the true
               transform, in-box feature counts, the region-grown masks
               against the box masks, K1 at 8,000 matches and K2 at
-              4096 x 4096 on the path, two runs of one plan, and that plan
-              served from the bare index maps (seconds, equal bits);
+              4096 x 4096 on the path, two runs of one plan;
   8. regions_bench     the phase-5 pair with `segment_pair` and a region
               target below the box count: whole regions in or out, masks
               that differ from the box, phase 4's acceptance bounds;
               `register_locations` (every candidate refined) against the
               staged run; `register_location_rigid` on 8 queries;
-              `watch_candidate`; one staged run from the bare index maps
-              equal to the run from the baked grids; the kernels' launches
-              of each entry point on its own (none by the rigid model);
+              `watch_candidate`; the kernels' launches of each entry point
+              on its own (none by the rigid model);
   9. cli_reference     the file-based pipeline at the reference constants,
               through `lrr_tpu_torch.cli.main`: phase 6's two volumes written
               as .mhd into a temporary directory, then `extract-features`,
@@ -81,7 +79,7 @@ Phases, one line each; any failure raises and exits non-zero:
               did not hold; K3 likewise (phase 16's checks), and K4 at every
               map shape and feature count a path launched it at that phase
               6 did not hold, on features made for the shape; K5 bit for
-              bit at every (lanes, matches, grid or map) a path launched it
+              bit at every (lanes, matches) a path launched it
               at that phase 3 did not hold, on inputs made for the shape.
  12. estimate  (printed before phase 11, while phase 6's pair is held) the
               estimate family on the card: `lrr_tpu_torch.cli.main(["estimate",
@@ -124,7 +122,7 @@ Phases, one line each; any failure raises and exits non-zero:
  15. sol  (after phase 13, before phase 11's line, which holds its shapes)
               the speed-of-light report (`lrr_tpu_torch.utils.sol.
               kernel_sol_report`) with the card line: one whole ICP iteration
-              (sampling through the baked grid, robust estimate, K1) at the
+              (sampling through the maps, robust estimate, K1) at the
               bench wave (64 lanes x 4096 matches) and the reference wave (20
               x 8000) against its light bound, the 195-d descriptor NN
               through K2 at 4096 x 4096 against its operations bound, with the
@@ -190,9 +188,9 @@ BENCH = os.path.join(ROOT, "lrr_tpu_torch", "data", "bench_pair_s64")
 # every one of them
 PINV_PATH_SHAPES: dict[tuple[int, int], dict[str, int]] = {}
 VORONOI_PATH_SHAPES: dict[tuple[int, int, int, int], dict[str, int]] = {}
-# K5's, {(L, m, "grid" | "map"): {path: launches}} (`kernels.SAMPLE_SHAPES`)
-SAMPLE_PATH_SHAPES: dict[tuple[int, int, str], dict[str, int]] = {}
-# K5 measured against its plain version, by "Lxm_kind" (`measure_k5`)
+# K5's, {(L, m): {path: launches}} (`kernels.SAMPLE_SHAPES`)
+SAMPLE_PATH_SHAPES: dict[tuple[int, int], dict[str, int]] = {}
+# K5 measured against its plain version, by "Lxm" (`measure_k5`)
 K5_MEASURED: dict[str, dict] = {}
 K5_CAPS = (1024, 2048, 4096, 8000)  # copd512's wave capacities (its staged schedule)
 # K4 measured against its plain version, by "DxHxWxN" (`measure_k4`)
@@ -581,7 +579,7 @@ def run_slice(seed: int, card: str):
 # ---------------------------------------------------------------------------
 
 STAGES = ("detect_features", "extract_keypoints", "compute_descriptors",
-          "build_feature_voronoi", "descriptor_nn_table", "bake_target_grid")
+          "build_feature_voronoi", "descriptor_nn_table")
 
 
 def timed_prepare_pair(moving, fixed, cfg):
@@ -737,26 +735,19 @@ def k4_inputs(rng, shape: tuple[int, int, int], n: int, dev):
     return xyz, mask, torch.zeros(3, device=dev), torch.ones(3, device=dev)
 
 
-def k5_key(L: int, m: int, kind: str) -> str:
-    return f"{L}x{m}_{kind}"
-
-
-def sample_shape(key: str) -> tuple[int, int, str]:
-    """A `kernels.SAMPLE_SHAPES` key from its "Lxmxkind" form (phase 13's
-    ranks write them so)."""
-    L, m, kind = key.split("x")
-    return int(L), int(m), kind
+def k5_key(L: int, m: int) -> str:
+    return f"{L}x{m}"
 
 
 def k5_inputs(rng, L: int, n: int, shape: tuple[int, int, int], dev, box_mm: float = 50.0):
-    """(src, grid, vor, trans, number, offset, dst_rows) for K5 on a 1 mm map
-    of `shape`: n source and n target features drawn as `k4_inputs` draws
-    them (15 % masked, their rows' tag 0), the targets' exact Voronoi map
-    (K4) and its baked grid; each lane's mask the valid sources in a
-    `box_mm` cube about a random source (a candidate's ROI), its transform a
-    rotation of up to 3 degrees about z and a shift of up to 2 mm about that
-    centre, its window offset below 2^62, its match count 10^9 (every valid
-    source inside the capacity is kept).  The K4 launch is taken back from
+    """(src, vor, trans, number, offset, dst_rows) for K5 on a 1 mm map of
+    `shape`: n source and n target features drawn as `k4_inputs` draws them
+    (15 % masked, their rows' tag 0), the targets' exact Voronoi map (K4);
+    each lane's mask the valid sources in a `box_mm` cube about a random
+    source (a candidate's ROI), its transform a rotation of up to 3 degrees
+    about z and a shift of up to 2 mm about that centre, its window offset
+    below 2^62, its match count 10^9 (every valid source inside the
+    capacity is kept).  The K4 launch is taken back from
     the counters: it is not a path's."""
     from lrr_tpu_torch.estimation import icp
     from lrr_tpu_torch.models.affine import Affine3D
@@ -776,10 +767,6 @@ def k5_inputs(rng, L: int, n: int, shape: tuple[int, int, int], dev, box_mm: flo
     src_rows, dst_rows = rows(xyz_s, mask_s).contiguous(), rows(xyz_d, mask_d).contiguous()
     vor = icp.VoronoiGrid(kernels.voronoi_nearest(xyz_d, mask_d, origin, spacing, shape),
                           origin, spacing)
-    flat = vor.index_vol.reshape(-1).long()
-    grid = torch.where((flat >= 0)[:, None], dst_rows[flat.clamp(min=0)],
-                       torch.zeros((1, 8), device=dev))
-    del flat
     centers = xyz_s[t(rng.integers(0, n, L), torch.int64)]
     lane_mask = mask_s[None, :] & ((xyz_s[None, :, :] - centers[:, None, :]).abs()
                                    <= box_mm / 2).all(-1)
@@ -796,43 +783,40 @@ def k5_inputs(rng, L: int, n: int, shape: tuple[int, int, int], dev, box_mm: flo
     number = torch.full((L,), 10**9, dtype=torch.int64, device=dev)
     offset = t(rng.integers(0, 1 << 62, L), torch.int64)
     kernels.add_counts(kernels.counts_since(before), -1)
-    return src, grid, vor, trans, number, offset, dst_rows
+    return src, vor, trans, number, offset, dst_rows
 
 
-def k5_target_rows(inputs, m: int, kind: str) -> int:
+def k5_target_reads(inputs, m: int) -> int:
     """The distinct 32-byte target reads of the window positions [0, m) of
-    `k5_inputs`: grid rows, or without a grid the map's sectors and the
-    feature rows they name (the plain path's voxel ids)."""
+    `k5_inputs`: the map's sectors and the feature rows they name (the plain
+    path's voxel ids)."""
     from lrr_tpu_torch.estimation import icp
     from lrr_tpu_torch.ops.voronoi import voxel_ids
 
-    src, _, vor, trans, _, offset, _ = inputs
+    src, vor, trans, _, offset, _ = inputs
     idx = icp._window(src.order, src.valid_count, offset,
                       torch.arange(m, device=src.order.device))
     mapped = icp._apply_packed(trans, src.rows[idx].permute(0, 2, 1)[:, 0:3])
     ids = voxel_ids(tuple(vor.index_vol.shape), vor.origin, vor.spacing, mapped.transpose(1, 2))
-    if kind == "grid":
-        return int(torch.unique(ids).numel())
     nn = vor.index_vol.reshape(-1)[ids]
     return int(torch.unique(ids // 8).numel()) + int(torch.unique(nn[nn >= 0]).numel())
 
 
-def measure_k5(timer, inputs, cap: int, kind: str, gather_gb_s: float | None) -> dict:
+def measure_k5(timer, inputs, cap: int, gather_gb_s: float | None) -> dict:
     """K5 against its plain version on the card (`icp.sample_matches_plain`)
-    on one set of `k5_inputs`, through the baked grid (`kind` "grid") or the
-    bare map ("map"): bits of all four outputs (twice), the share of window
-    positions kept, times, the bound (`sol.sample_matches_bound_ms` over the
-    distinct target reads) and, with `gather_gb_s`, the same bytes with the
-    target reads priced at that random-row rate.  Its launches here are
-    taken back from the counters: they are not a path's."""
+    on one set of `k5_inputs`: bits of all four outputs (twice), the share
+    of window positions kept, times, the bound (`sol.sample_matches_bound_ms`
+    over the distinct target reads) and, with `gather_gb_s`, the same bytes
+    with the target reads priced at that random-row rate.  Its launches
+    here are taken back from the counters: they are not a path's."""
     from lrr_tpu_torch.estimation import icp
     from lrr_tpu_torch.ops import kernels
     from lrr_tpu_torch.pipeline.wave_graph import first_difference
     from lrr_tpu_torch.utils import sol
 
-    src, grid, vor, trans, number, offset, dst_rows = inputs
+    src, vor, trans, number, offset, dst_rows = inputs
     L, m = src.order.shape[0], min(cap, src.order.shape[1])
-    args = (src, grid if kind == "grid" else None, vor, trans, number, m, offset)
+    args = (src, vor, trans, number, m, offset)
     before = kernels.counts()
 
     def k5():
@@ -842,7 +826,7 @@ def measure_k5(timer, inputs, cap: int, kind: str, gather_gb_s: float | None) ->
         return icp.sample_matches_plain(*args, dst_rows=dst_rows, p0=0, m=m)
 
     got, again, want = k5(), k5(), plain()
-    key = k5_key(L, m, kind)
+    key = k5_key(L, m)
     for other, what in ((want, "the plain sampler"), (again, "a second launch")):
         field = first_difference(got, other)
         if field is not None:
@@ -850,14 +834,14 @@ def measure_k5(timer, inputs, cap: int, kind: str, gather_gb_s: float | None) ->
     kept = float(got[3].float().mean())
     del got, again, want
     ms = timer.ms(k5)
-    rows = k5_target_rows(inputs, m, kind)
-    bound, by = sol.sample_matches_bound_ms(L, m, src.rows.shape[0], rows)
-    rec = {"lanes": L, "m": m, "kind": kind, "bit_identical": True, "kept_share": kept,
-           "target_reads": rows, "ms": ms, "ms_warm": timer.ms(k5, cold=False),
+    reads = k5_target_reads(inputs, m)
+    bound, by = sol.sample_matches_bound_ms(L, m, src.rows.shape[0], reads)
+    rec = {"lanes": L, "m": m, "bit_identical": True, "kept_share": kept,
+           "target_reads": reads, "ms": ms, "ms_warm": timer.ms(k5, cold=False),
            "plain_ms": timer.ms(plain, reps=5), "bound_ms": bound, "bound_by": by,
            "share_of_bound": bound / ms}
     if gather_gb_s is not None:
-        rec["random_rows_ms"] = sol.sample_matches_bound_ms(L, m, src.rows.shape[0], rows,
+        rec["random_rows_ms"] = sol.sample_matches_bound_ms(L, m, src.rows.shape[0], reads,
                                                             gather_gb_s)[0]
     kernels.add_counts(kernels.counts_since(before), -1)
     K5_MEASURED[key] = rec
@@ -866,15 +850,13 @@ def measure_k5(timer, inputs, cap: int, kind: str, gather_gb_s: float | None) ->
 
 def check_k5(rng, dev, timer) -> dict:
     """K5 at copd512's wave shapes: 512 lanes at each capacity of its
-    schedule through a baked grid of copd512's map (320 x 352 x 352 at 1 mm,
-    65,536 features a side), and at 2,048 through the bare map."""
+    schedule through copd512's map (320 x 352 x 352 at 1 mm, 65,536
+    features a side)."""
     from lrr_tpu_torch.utils import sol
 
     gather = sol.measured_gather_roofline(dev)["gather_gb_s_dense_big"]
     inputs = k5_inputs(rng, 512, 65536, COPD512_MAP, dev)
-    out = {k5_key(512, cap, "grid"): measure_k5(timer, inputs, cap, "grid", gather)
-           for cap in K5_CAPS}
-    out[k5_key(512, 2048, "map")] = measure_k5(timer, inputs, 2048, "map", gather)
+    out = {k5_key(512, cap): measure_k5(timer, inputs, cap, gather) for cap in K5_CAPS}
     out["gather_gb_s"] = gather
     del inputs
     return out
@@ -956,7 +938,6 @@ def run_stage1_reference(card: str, timer):
         exact_builds_equal_on_subbox=exact_builds_equal, subbox_brute_force_s=brute_s,
         k4_equal_on_subbox=k4_equal_on_subbox, k4=k4,
         subbox_voxels_differing_from_map=differs_from_map,
-        grids_baked=[ctx.moving_grid is not None, ctx.fixed_grid is not None],
         peak_mem_gb=peak_gb, digests=digests,
     )
     if min(counts["features"]) < 30000:
@@ -1102,8 +1083,6 @@ def reference_queries(moving) -> np.ndarray:
 def run_serve_reference(seed: int, card: str, ref):
     """Phase 7: regions attached and 16 queries served at the reference
     constants, on phase 6's pair and context."""
-    import dataclasses
-
     from lrr_tpu_torch.ops import kernels
     from lrr_tpu_torch.pipeline import registration
     from lrr_tpu_torch.sampling import draw_sampling_plan
@@ -1181,20 +1160,7 @@ def run_serve_reference(seed: int, card: str, ref):
     note_path_shapes("serve_reference")
     k2_shapes = dict(kernels.K2_SHAPES)
 
-    # the last plan again from the bare index maps (after the counts were
-    # read): the same rows, so the same result; its seconds beside the grids'
-    ctx_bare = dataclasses.replace(ctx_r, fixed_grid=None, moving_grid=None)
-    bare_s = []
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        bare = registration.register_locations_staged(ctx_bare, q, cfg, svm, plan)
-        torch.cuda.synchronize()
-        bare_s.append(time.perf_counter() - t0)
-    bare_equal = all(torch.equal(a, b) for a, b in (
-        (bare.selected, outs[-1].selected), (bare.trans.A, outs[-1].trans.A),
-        (bare.trans.t, outs[-1].trans.t), (bare.probability, outs[-1].probability)))
-    del plan, bare, ctx_bare
+    del plan
 
     out = outs[-1]
     acc = acceptance_stats(out, queries, true)
@@ -1213,9 +1179,6 @@ def run_serve_reference(seed: int, card: str, ref):
             for i in range(Q)],
         "in_box_features": in_box, "region_masks_equal_box_masks": masks_equal,
         "same_plan_same_selected": bool(torch.equal(outs[-1].selected, outs[-2].selected)),
-        "bare_index_map": {
-            "run_s": bare_s, "equal_to_grid_run": bare_equal,
-            "grids_baked": [ctx_r.moving_grid is not None, ctx_r.fixed_grid is not None]},
         "usable_candidates_per_query": usable.sum(1).tolist(),
         "rank0_initial_error_mm": init_err.gather(1, rank0[:, None])[:, 0].tolist(),
         "best_initial_error_mm": torch.where(
@@ -1250,9 +1213,6 @@ def run_serve_reference(seed: int, card: str, ref):
                              "where the box holds fewer features than the target")
     if not rec["same_plan_same_selected"]:
         raise AssertionError("serve_reference: two runs with one plan selected differently")
-    if not bare_equal:
-        raise AssertionError("serve_reference: the run from the bare index maps differs "
-                             "from the run from the grids")
     # what phase 13 serves again over two ranks: the last run's plan and result
     served = {"plan_seed": seed * 1000 + 700 + 2, "selected": sel.tolist(),
               "median_gt_error_mm": acc["median_gt_error_mm"],
@@ -1334,7 +1294,7 @@ def whole_regions(sel: torch.Tensor, box: torch.Tensor, labels: torch.Tensor) ->
 
 def run_regions_bench(seed: int, card: str, bench):
     """Phase 8: the bench pair with regions that cut the box, then the
-    refine-all, rigid, replay and grid-less entry points."""
+    refine-all, rigid and replay entry points."""
     import dataclasses
 
     from lrr_tpu_torch.models.affine import Affine3D
@@ -1430,19 +1390,6 @@ def run_regions_bench(seed: int, card: str, bench):
         "staged_s": staged_s, "refine_all_s": every_s, "both_verified": int(both.sum()),
         "selected_agree": agree, **acceptance_stats(every, queries, true),
     }
-
-    # the bare index maps give the rows the baked grids hold
-    bare, bare_s = timed(
-        registration.register_locations_staged,
-        dataclasses.replace(ctx_r, fixed_grid=None, moving_grid=None), q, cfg_r, svm, plan)
-    bare_equal = all(
-        torch.equal(a, b) for a, b in (
-            (bare.selected, staged.selected), (bare.trans.A, staged.trans.A),
-            (bare.trans.t, staged.trans.t), (bare.probability, staged.probability)))
-    if not bare_equal:
-        problems.append("the run from the bare index maps differs from the run from the grids")
-    fields["bare_index_map"] = {"seconds": bare_s, "equal_to_grid_run": bare_equal}
-    close_entry("bare_index_map", k1_on_path=True)
 
     # the rigid model on 8 queries
     rigid_err, rigid_orth, rigid_s = [], [], []
@@ -2365,8 +2312,7 @@ def parallel_rank(spec_path: str) -> None:
     init, _, _, draws = registration._one_candidate(ctx_r, q[0], cfg, plan.query(0), cand, inits)
     m_roi = dataclasses.replace(ctx_r.moving_features, mask=ctx_r.moving_features.mask[None])
     f_roi = dataclasses.replace(ctx_r.fixed_features, mask=ctx_r.fixed_features.mask[None])
-    kw = dict(moving_targets=ctx_r.moving_features, fixed_targets=ctx_r.fixed_features,
-              fixed_grid=ctx_r.fixed_grid, moving_grid=ctx_r.moving_grid)
+    kw = dict(moving_targets=ctx_r.moving_features, fixed_targets=ctx_r.fixed_features)
 
     def icp(mesh):
         res = register_candidate(m_roi, f_roi, ctx_r.fixed_vor, ctx_r.moving_vor, init,
@@ -2498,8 +2444,7 @@ def run_parallel(seed: int, card: str, digests: dict, served: dict, batch: dict,
     for rec in ranks:
         note_path_shapes(f"parallel_rank{rec['rank']}", ({}, {}, {}, *(
             {tuple(int(v) for v in k.split("x")): n for k, n in rec[key].items()}
-            for key in ("pinv_shapes", "voronoi_shapes")),
-            {sample_shape(k): n for k, n in rec["sample_shapes"].items()}))
+            for key in ("pinv_shapes", "voronoi_shapes", "sample_shapes"))))
     launches = {name: sum(part[name] for rec in ranks for part in rec["launches"].values())
                 for name in ranks[0]["launches"]["serve"]}
     return launches, shapes("k1_shapes"), shapes("k2_shapes")
@@ -3230,13 +3175,13 @@ def main() -> None:
         if k4_key((D, H, W), n) not in K4_MEASURED:
             k4_added[k4_key((D, H, W), n)] = measure_k4(
                 timer, *k4_inputs(rng, (D, H, W), n, dev), (D, H, W))
-    # K5 against its plain version at every (L, m, kind) a path gave it
-    # that phase 3 did not hold, on a small map with m sources a lane's box
+    # K5 against its plain version at every (L, m) a path gave it that
+    # phase 3 did not hold, on a small map with m sources a lane's box
     k5_added = {}
-    for L, m, kind in sorted(SAMPLE_PATH_SHAPES):
-        if k5_key(L, m, kind) not in K5_MEASURED:
-            k5_added[k5_key(L, m, kind)] = measure_k5(
-                timer, k5_inputs(rng, L, m, (64, 64, 64), dev, box_mm=40.0), m, kind, None)
+    for L, m in sorted(SAMPLE_PATH_SHAPES):
+        if k5_key(L, m) not in K5_MEASURED:
+            k5_added[k5_key(L, m)] = measure_k5(
+                timer, k5_inputs(rng, L, m, (64, 64, 64), dev, box_mm=40.0), m, None)
     phase("kernels_path_shapes", card=card, normal_equations=added, knn=k2_added,
           pinv_sym=k3_added, voronoi=k4_added, sample_matches=k5_added,
           launches={k1_key(*shape, True): n for shape, n in sorted(path_shapes.items())},
@@ -3255,7 +3200,7 @@ def main() -> None:
     k1m, k2m, k2r = k1[k1_key(*k1_main, True)], k2["128x128x195_k1"], k2["4096x4096x195_k1"]
     k3m = k3["bench_wave_64x12"]
     k4m = next(rec for rec in K4_MEASURED.values() if tuple(rec["shape"]) == COPD512_MAP)
-    k5m = K5_MEASURED[k5_key(512, 2048, "grid")]
+    k5m = K5_MEASURED[k5_key(512, 2048)]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": "normal_equations", "route": "cuda",
@@ -3307,11 +3252,12 @@ def main() -> None:
          "source": "lrr_tpu_torch/csrc/sample_matches.cu", "replaces": None,
          "note": "no Pallas counterpart: lrr_tpu samples the ICP's matches with XLA gathers "
                  "(`_take_rows8`); the port's plain version is estimation/icp.py::"
-                 "sample_matches_plain, two 32-byte row gathers and ~50 eager launches",
+                 "sample_matches_plain, a 32-byte row gather, the map read and ~50 eager "
+                 "launches",
          "launches": launches["sample_matches"], "bit_identical": True,
          **{k: k5m[k] for k in ("ms", "ms_warm", "plain_ms", "bound_ms", "bound_by",
                                 "share_of_bound")},
-         "shape": k5_key(512, 2048, "grid") + " (a copd512 wave's second level, copd512's map)",
+         "shape": k5_key(512, 2048) + " (a copd512 wave's second level, copd512's map)",
          "other_path_shapes": {
              k5_key(*shape): {
                  **{k: K5_MEASURED[k5_key(*shape)][k]

@@ -10,8 +10,8 @@
 // [L, m].  It replaces no Pallas kernel: lrr_tpu samples with XLA gathers
 // (lrr_tpu/estimation/icp.py::_sample_matches_packed, `_take_rows8`), and the
 // port ran the same steps as ~50 eager launches a direction, two of them
-// 32-byte row gathers (`rows[idx]`, `grid[ids]`) that PyTorch runs at a
-// tenth of the card's random-sector rate.
+// 32-byte row gathers that PyTorch runs at a tenth of the card's
+// random-sector rate.
 //
 // Arithmetic, the plain version's: x - c, then ((A0 xc0 + A1 xc1) + A2 xc2)
 // + t a row, (q - origin) / spacing with an IEEE division, rounded half to
@@ -24,21 +24,22 @@
 // What bounds it on the card: bytes.  A match reads its 8-byte permutation
 // entry (coalesced along the window), a 32-byte source row and a mask byte
 // from tables that stay in L2 (2 MB and 32 KB a lane at 65,536 features),
-// then one random 32-byte row of the target grid (1.3 GB at copd512's map:
-// one HBM sector that no other match of the wave is likely to share), and
-// writes 16 floats, a weight and a mask byte.  Design:
+// then the voxel's int32 feature index from the bare Voronoi map (159 MB at
+// copd512's map: one random HBM sector, shared only with matches that land
+// within 8 voxels along x) and that feature's 32-byte row from the target
+// rows (2 MB, L2-resident), and writes 16 floats, a weight and a mask byte.
+// Design:
 //   * one thread a (lane, window position), 256 threads a block along one
 //     lane's positions: the lane's 15 transform floats and its window
 //     (start, length, limit) are loaded once a block into shared memory;
-//   * the rows are read as two float4, the grid row as one 32-byte sector;
+//   * the rows are read as two float4;
 //   * the outputs are rows, the layout the ICP's ops after the sampler read
 //     (views of them, as of the row gathers it replaces: a layout that sums
 //     over the matches in another order would move the later results'
 //     last bits), so thread j writes the two float4 of row j: every store
 //     is coalesced;
-//   * without a grid (a map above the baked-grid limit) the voxel's feature
-//     index is read from the bare map and that feature's row from the target
-//     rows, or the zero row for an empty voxel, in the same kernel.
+//   * an empty voxel (index -1) gives the zero row, whose tag 0 drops the
+//     match.
 // Nothing is allocated, sorted or read back on the host.
 
 #include <cuda_runtime.h>
@@ -68,8 +69,8 @@ sample_kernel(const long long* __restrict__ order, const float4* __restrict__ ro
               const long long* __restrict__ offset, const long long* __restrict__ number,
               const float* __restrict__ A, const float* __restrict__ T,
               const float* __restrict__ C, const float* __restrict__ origin,
-              const float* __restrict__ spacing, const float4* __restrict__ grid,
-              const int* __restrict__ index_vol, const float4* __restrict__ dst_rows,
+              const float* __restrict__ spacing, const int* __restrict__ index_vol,
+              const float4* __restrict__ dst_rows,
               float* __restrict__ src_out, float* __restrict__ dst_out,
               float* __restrict__ weight, unsigned char* __restrict__ mask,
               long long order_cols, long long mask_cols, int m, long long p0, long long cap,
@@ -118,15 +119,10 @@ sample_kernel(const long long* __restrict__ order, const float4* __restrict__ ro
 
   // the target row
   float4 d0 = make_float4(0.f, 0.f, 0.f, 0.f), d1 = d0;
-  if (grid != nullptr) {
-    d0 = grid[2 * id];
-    d1 = grid[2 * id + 1];
-  } else {
-    const int nn = index_vol[id];
-    if (nn >= 0) {
-      d0 = dst_rows[2 * (long long)nn];
-      d1 = dst_rows[2 * (long long)nn + 1];
-    }
+  const int nn = index_vol[id];
+  if (nn >= 0) {
+    d0 = dst_rows[2 * (long long)nn];
+    d1 = dst_rows[2 * (long long)nn + 1];
   }
   const bool ok = sel && d1.w > 0.5f;
 
@@ -145,23 +141,22 @@ sample_kernel(const long long* __restrict__ order, const float4* __restrict__ ro
 
 // order [L, order_cols] int64, rows [*, 8] float32 (16-byte aligned),
 // lane_mask [L, mask_cols] bool, valid, offset, number [L] int64, A [L, 3, 3],
-// t [L, 3], center [L, 3], origin [3], spacing [3] float32; grid [D*H*W, 8]
-// float32 (16-byte aligned), or null and then index_vol [D, H, W] int32 and
-// dst_rows [*, 8] float32 (16-byte aligned); outputs src, dst [L, m, 8]
-// float32 (16-byte aligned), weight [L, m] float32, mask [L, m] bool.  All
-// contiguous on the device.  Window positions p0 .. p0 + m - 1; cap the
-// window's capacity.
+// t [L, 3], center [L, 3], origin [3], spacing [3] float32; index_vol
+// [D, H, W] int32, dst_rows [*, 8] float32 (16-byte aligned); outputs src,
+// dst [L, m, 8] float32 (16-byte aligned), weight [L, m] float32, mask
+// [L, m] bool.  All contiguous on the device.  Window positions p0 .. p0 +
+// m - 1; cap the window's capacity.
 // Launches on `stream`, never synchronises.
 extern "C" int lrr_sample_matches(const void* order, const void* rows, const void* lane_mask,
                                   const void* valid, const void* offset, const void* number,
                                   const void* A, const void* t, const void* center,
-                                  const void* origin, const void* spacing, const void* grid,
+                                  const void* origin, const void* spacing,
                                   const void* index_vol, const void* dst_rows, void* src_out,
                                   void* dst_out, void* weight, void* mask, long long order_cols,
                                   long long mask_cols, int L, int m, long long p0,
                                   long long cap, int D, int H, int W, void* stream) {
   if (L < 0 || m < 0 || L > 65535 || order_cols <= 0 || D <= 0 || H <= 0 || W <= 0 ||
-      (grid == nullptr && (index_vol == nullptr || dst_rows == nullptr)))
+      index_vol == nullptr || dst_rows == nullptr)
     return (int)cudaErrorInvalidValue;
   if (L == 0 || m == 0) return (int)cudaSuccess;
   const dim3 blocks((m + kThreads - 1) / kThreads, L);
@@ -169,8 +164,8 @@ extern "C" int lrr_sample_matches(const void* order, const void* rows, const voi
       (const long long*)order, (const float4*)rows, (const unsigned char*)lane_mask,
       (const long long*)valid, (const long long*)offset, (const long long*)number,
       (const float*)A, (const float*)t, (const float*)center, (const float*)origin,
-      (const float*)spacing, (const float4*)grid, (const int*)index_vol,
-      (const float4*)dst_rows, (float*)src_out, (float*)dst_out, (float*)weight,
-      (unsigned char*)mask, order_cols, mask_cols, m, p0, cap, D, H, W);
+      (const float*)spacing, (const int*)index_vol, (const float4*)dst_rows, (float*)src_out,
+      (float*)dst_out, (float*)weight, (unsigned char*)mask, order_cols, mask_cols, m, p0, cap,
+      D, H, W);
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,9 @@ pipeline/wave_graph.py captures as CUDA graphs on the card).
 
 Per iteration (see the JAX package for the reference citations): forward
 and backward matches from a rolling window of each lane's random source
-permutation, nearest neighbour by one row read from the baked Voronoi NN
-grid (on the card both directions' sampling is kernel K5); robust scale
+permutation, nearest neighbour by the voxel's feature index in the target's
+bare Voronoi index map, then that feature's packed row (on the card both
+directions' sampling is kernel K5); robust scale
 (MUSE on iteration 0, RMS after), Beaton-Tukey weights, strength and
 spatial weights with MAD normalisation, weight floor; one
 12x12 normal-equation system for the forward parameters from both
@@ -19,11 +20,12 @@ directions (kernel K1, which also normalises the coordinates and reads
 the projector coefficients off the row tag), pseudo-inverse solve;
 convergence, oscillation and the match-count doubling schedule.
 
-Per-match tensors are component-major, [L, C, M].  The TPU-only layouts of
-the JAX package (the [V/16, 128] packed grid, `_take_rows8`, `flat_take`)
-are not ported: the grid is the plain [V, 8] row table.  A map too large
-for a baked grid is served from the bare index map: the voxel's feature
-index, then that feature's packed row.
+Per-match tensors are component-major, [L, C, M].  The JAX package bakes
+the lookup into an NN-row grid, one packed target row a voxel, in TPU-only
+layouts (the [V/16, 128] packed grid, `_take_rows8`, `flat_take`); the port
+serves every match from the bare map and the [N, 8] target rows, which give
+the same rows (`bake_target_grid`, the port of the JAX bake, is the oracle
+the tests hold them against).
 
 `model="rigid"` swaps the 12-dof solve for a 6-dof small-angle increment on
 the mapped points (cdcl_estimation.txx:111-165); its 6x6 system is plain
@@ -57,9 +59,6 @@ from lrr_tpu_torch.sampling import ICPDraws
 from lrr_tpu_torch.types import SHEET, TUBE, FeatureSet
 
 WEIGHT_FLOOR = 1e-4  # accumulation skip threshold (symmetric .txx:469,576)
-# maps above this voxel count get no baked NN-row grid ([V, 8] fp32: 2 GB at
-# 64M voxels) and are served from the bare index map
-FUSED_GRID_MAX_VOXELS = 64 * 1024 * 1024
 SCALE_FLOOR = 0.005  # (symmetric .txx:701,704)
 
 
@@ -255,7 +254,9 @@ def _pack_features_wide(fs: FeatureSet) -> torch.Tensor:
 def bake_target_grid(targets: FeatureSet, vor: VoronoiGrid) -> torch.Tensor:
     """The NN lookup baked into the Voronoi grid: [V, 8], each voxel's row
     is the packed row of its nearest feature (zeros, tag 0, for empty
-    voxels).  Pair-level state, built once per context."""
+    voxels): the JAX package's pair-level grid.  Nothing in the program
+    calls it; the tests hold the map lookup of `sample_matches_plain` and
+    K5 against its rows."""
     flat = vor.index_vol.reshape(-1).long()
     rows = _pack_features(targets)[torch.clamp(flat, min=0)]
     return torch.where((flat >= 0)[:, None], rows, torch.zeros_like(rows))
@@ -320,19 +321,17 @@ def _apply_packed(trans: Affine3D, x: torch.Tensor) -> torch.Tensor:
     )
 
 
-def sample_matches_plain(src: _PackedSource, grid: torch.Tensor | None, vor: VoronoiGrid,
-                         trans: Affine3D, number: torch.Tensor, cap: int, offset: torch.Tensor,
-                         *, dst_rows: torch.Tensor | None, p0: int, m: int):
+def sample_matches_plain(src: _PackedSource, vor: VoronoiGrid, trans: Affine3D,
+                         number: torch.Tensor, cap: int, offset: torch.Tensor, *,
+                         dst_rows: torch.Tensor, p0: int, m: int):
     """Kernel K5's plain version (`kernels.sample_matches`, which the CPU
     takes): window positions [p0, p0 + m) of each lane's cyclic window of
     capacity `cap` (at most the permutation's length), the source rows under
-    the lane's mask, mapped through `trans` and matched by one row gather
-    from the baked grid (empty voxels carry tag 0), or without a grid the
-    voxel's feature index read from the map and the row taken from
-    `dst_rows` (an empty voxel gets the zero row the grid would hold, so
-    both give the same rows).  Returns the matches' rows src, dst [L, m, 8]
-    (src column 7 the tag under the lane's mask), the weight and the mask
-    [L, m] of the kept matches."""
+    the lane's mask, mapped through `trans` and matched by the voxel's
+    feature index read from the map and that feature's row of `dst_rows`
+    (an empty voxel gets the zero row, tag 0).  Returns the matches' rows
+    src, dst [L, m, 8] (src column 7 the tag under the lane's mask), the
+    weight and the mask [L, m] of the kept matches."""
     pos = torch.arange(p0, p0 + m, device=src.order.device)
     idx = _window(src.order, src.valid_count, offset, pos)
     s = src.rows[idx]  # [L, m, 8]
@@ -344,26 +343,22 @@ def sample_matches_plain(src: _PackedSource, grid: torch.Tensor | None, vor: Vor
     mapped = _apply_packed(trans, s.permute(0, 2, 1)[:, 0:3])
     ids = voxel_ids(tuple(vor.index_vol.shape), vor.origin, vor.spacing,
                     mapped.transpose(1, 2))
-    if grid is not None:
-        to_rows = grid[ids]
-    else:
-        nn = vor.index_vol.reshape(-1)[ids]
-        to_rows = dst_rows[torch.clamp(nn, min=0).long()]
-        to_rows = torch.where((nn >= 0)[..., None], to_rows, torch.zeros_like(to_rows))
+    nn = vor.index_vol.reshape(-1)[ids]
+    to_rows = dst_rows[torch.clamp(nn, min=0).long()]
+    to_rows = torch.where((nn >= 0)[..., None], to_rows, torch.zeros_like(to_rows))
     ok = sel & (to_rows[..., 7] > 0.5)
     return s, to_rows, ok.to(s.dtype), ok
 
 
 def _sample_matches_packed(
     src: _PackedSource,
-    grid: torch.Tensor | None,  # [V, 8], or None: match through the index map
     vor: VoronoiGrid,
     trans: Affine3D,
     number: torch.Tensor,  # [L]
     cap: int,
     offset: torch.Tensor,  # [L] raw offsets
     *,
-    dst_rows: torch.Tensor | None = None,  # [N, 8] target rows, for grid None
+    dst_rows: torch.Tensor,  # [N, 8] the target rows `vor` indexes
     mx: _MatchAxis = _WHOLE,
 ) -> PackedMatches:
     """A window of `cap` source rows per lane, mapped through `trans` and
@@ -377,7 +372,7 @@ def _sample_matches_packed(
     trans = Affine3D(A=trans.A.contiguous(), t=trans.t.contiguous(),
                      center=trans.center.contiguous())
     s, d, weight, ok = kernels.sample_matches(
-        src, grid, vor, trans, number.to(torch.int64).contiguous(), cap,
+        src, vor, trans, number.to(torch.int64).contiguous(), cap,
         offset.to(torch.int64).contiguous(), dst_rows=dst_rows, p0=p0, m=m,
     )
     s, d = s.permute(0, 2, 1), d.permute(0, 2, 1)  # [L, 8, M] views
@@ -748,13 +743,11 @@ class Refinement:
     def __init__(self, moving: FeatureSet, fixed: FeatureSet, fixed_vor: VoronoiGrid,
                  moving_vor: VoronoiGrid, cfg: EstimationConfig, draws: ICPDraws, *,
                  moving_targets: FeatureSet, fixed_targets: FeatureSet,
-                 fixed_grid: torch.Tensor | None, moving_grid: torch.Tensor | None,
                  model: str = "affine", mesh=None, match_axis: str = "mp"):
         if model not in ("affine", "rigid"):
             raise ValueError(f"unknown transform model {model!r}")
         self.model, self.cfg, self.draws = model, cfg, draws
         self.fixed_vor, self.moving_vor = fixed_vor, moving_vor
-        self.fixed_grid, self.moving_grid = fixed_grid, moving_grid
         self.moving_targets, self.fixed_targets = moving_targets, fixed_targets
         self.estimate_ls = _estimate_ls_packed if model == "affine" else _estimate_ls_rigid_packed
         self.mx = _WHOLE if mesh is None else _MatchAxis(mesh, match_axis)
@@ -790,11 +783,11 @@ class Refinement:
         n_offsets = cfg.max_iterations + 1
         it = torch.clamp(c.iteration, max=n_offsets - 1)[:, None]
         fwd = _sample_matches_packed(
-            self.src_m, self.fixed_grid, self.fixed_vor, c.trans, c.number_matches, cap,
+            self.src_m, self.fixed_vor, c.trans, c.number_matches, cap,
             draws.offsets_f.gather(1, it)[:, 0], dst_rows=self.src_f.rows, mx=mx,
         )
         bwd = _sample_matches_packed(
-            self.src_f, self.moving_grid, self.moving_vor, c.trans.inverse(), c.number_matches,
+            self.src_f, self.moving_vor, c.trans.inverse(), c.number_matches,
             cap, draws.offsets_b.gather(1, it)[:, 0], dst_rows=self.src_m.rows, mx=mx,
         )
         new_trans, cov_w, fwd_w, bwd_w = self.estimate_ls(c.trans, fwd, bwd, use_muse, cfg, mx)
@@ -918,8 +911,6 @@ def register_candidate(
     *,
     moving_targets: FeatureSet,
     fixed_targets: FeatureSet,
-    fixed_grid: torch.Tensor | None,
-    moving_grid: torch.Tensor | None,
     model: str = "affine",
     progress_callback=None,
     mesh=None,
@@ -930,10 +921,8 @@ def register_candidate(
     `moving`/`fixed` are the SAMPLING sources: the target sets under a
     per-lane mask [L, N] (the candidate's ROI).  `moving_targets`/
     `fixed_targets` are the match TARGET sets the Voronoi maps index into
-    (itkLocationRegistration.cxx:1645-1650), and `fixed_grid`/`moving_grid`
-    their baked NN-row grids (`bake_target_grid`), or None for a map above
-    `FUSED_GRID_MAX_VOXELS`: matching then goes through the bare index map
-    (no grid is baked per call, which would sweep the whole map).
+    (itkLocationRegistration.cxx:1645-1650); a match reads the voxel's
+    feature index there and that target's packed row.
 
     `model` is "affine" (12 dof, kernel K1) or "rigid" (6-dof small-angle
     increments, BASELINE config 3); sampling, robust weighting, convergence
@@ -954,8 +943,7 @@ def register_candidate(
     read back (the callback reads each; the mesh's exchanges stay eager)."""
     r = Refinement(
         moving, fixed, fixed_vor, moving_vor, cfg, draws, moving_targets=moving_targets,
-        fixed_targets=fixed_targets, fixed_grid=fixed_grid, moving_grid=moving_grid,
-        model=model, mesh=mesh, match_axis=match_axis,
+        fixed_targets=fixed_targets, model=model, mesh=mesh, match_axis=match_axis,
     )
     if progress_callback is None and mesh is None:
         return r.finish(r.levels(r.start(init)))

@@ -64,8 +64,6 @@ def backward_covariance(
     *,
     moving_targets: FeatureSet,
     fixed_targets: FeatureSet,
-    fixed_grid: torch.Tensor | None,
-    moving_grid: torch.Tensor | None,
     mesh=None,
     match_axis: str = "mp",
 ) -> torch.Tensor:
@@ -73,20 +71,18 @@ def backward_covariance(
     parameters: swap the directions, accumulate the normal equations about
     the inverse transform (kernel K1), keep (AtA)^{-1}.  A fresh random
     subsample at the final match count.  Sources and targets as in
-    `register_candidate`; the NN goes through the baked grids, which hold
-    exactly the rows the map lookup gives where a grid is None.  `mesh`
-    splits the matches over the `match_axis` ranks, as in
-    `register_candidate`."""
+    `register_candidate`, matched through the maps as there.  `mesh` splits
+    the matches over the `match_axis` ranks, as in `register_candidate`."""
     mx = _WHOLE if mesh is None else _MatchAxis(mesh, match_axis)
     inv = result.trans.inverse()
     src_f = _pack_source(draws.scores_f, _pack_features(fixed_targets), fixed.mask)
     src_m = _pack_source(draws.scores_m, _pack_features(moving_targets), moving.mask)
     fwd_sw = _sample_matches_packed(
-        src_f, moving_grid, moving_vor, inv, result.number_matches, cfg.max_matches,
+        src_f, moving_vor, inv, result.number_matches, cfg.max_matches,
         draws.offset_b, dst_rows=src_m.rows, mx=mx,
     )
     bwd_sw = _sample_matches_packed(
-        src_m, fixed_grid, fixed_vor, result.trans, result.number_matches,
+        src_m, fixed_vor, result.trans, result.number_matches,
         cfg.max_matches, draws.offset_f, dst_rows=src_f.rows, mx=mx,
     )
     _, cov_bwd, _, _ = _estimate_ls_packed(inv, fwd_sw, bwd_sw, False, cfg, mx)

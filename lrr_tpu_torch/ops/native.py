@@ -52,9 +52,9 @@ _SIGNATURES = {
     # H, W, stream
     "lrr_voronoi_nearest": [_P] * 8 + [_I] * 4 + [_P],
     # order, rows, lane_mask, valid, offset, number, A, t, center, origin,
-    # spacing, grid (or null), index_vol, dst_rows, src, dst, weight, mask,
-    # order_cols, mask_cols, L, m, p0, cap, D, H, W, stream
-    "lrr_sample_matches": [_P] * 18 + [_LL] * 2 + [_I] * 2 + [_LL] * 2 + [_I] * 3 + [_P],
+    # spacing, index_vol, dst_rows, src, dst, weight, mask, order_cols,
+    # mask_cols, L, m, p0, cap, D, H, W, stream
+    "lrr_sample_matches": [_P] * 17 + [_LL] * 2 + [_I] * 2 + [_LL] * 2 + [_I] * 3 + [_P],
     # stream: an empty kernel, for the launch floor
     "lrr_empty": [_P],
 }

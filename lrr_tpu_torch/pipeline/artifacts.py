@@ -10,9 +10,8 @@ fields in order), `md.0..5`/`fd.0..5` (keypoint fields, then descriptors),
 `mv.0..2`/`fv.0..2` (VoronoiGrid) and `version`, and optionally
 `mr.0`/`fr.0`, the per-feature compact watershed region ids of a context
 that had regions attached (the JAX package's loader passes over them).  The
-derived state the file omits (the descriptor-NN table and the baked NN-row
-grids) is rebuilt by the same `assemble_pair_context` that ends
-`prepare_pair`.
+derived state the file omits (the descriptor-NN table) is rebuilt by the
+same `assemble_pair_context` that ends `prepare_pair`.
 """
 
 from __future__ import annotations

@@ -2,10 +2,10 @@
 (lrr_tpu/pipeline/registration.py).
 
 `prepare_pair` takes the two volumes to a `PairContext`: features,
-keypoints, descriptors, Voronoi maps, the descriptor-NN table and the baked
-NN-row grids, all on the volumes' device.  `segment_pair` adds the
-watershed regions: with them a candidate's feature subset is a union of
-whole regions grown inside the ROI box instead of the plain box.
+keypoints, descriptors, Voronoi maps and the descriptor-NN table, all on the
+volumes' device.  `segment_pair` adds the watershed regions: with them a
+candidate's feature subset is a union of whole regions grown inside the ROI
+box instead of the plain box.
 
 Per query location: candidate generation by descriptor indexing,
 keypoint-frame initialisation, ROI feature selection, PASS-1 ranking by
@@ -34,10 +34,8 @@ import torch
 from lrr_tpu_torch.config import PipelineConfig
 from lrr_tpu_torch.estimation import icp
 from lrr_tpu_torch.estimation.icp import (
-    FUSED_GRID_MAX_VOXELS,
     ICPResult,
     VoronoiGrid,
-    bake_target_grid,
     _angle_stats_packed,
     _as_packed_matches,
     _pack_features_wide,
@@ -73,7 +71,8 @@ from lrr_tpu_torch.verify.svm import SvmModel, predict_probability, scale_measur
 @dataclasses.dataclass
 class PairContext:
     """Precomputed per-volume-pair state (stage-1 artifacts), plus the
-    derived descriptor-NN table and baked NN-row grids."""
+    derived descriptor-NN table.  Every ICP match reads a Voronoi map's
+    feature index and that feature's row (`icp.sample_matches_plain`)."""
 
     moving_features: FeatureSet
     fixed_features: FeatureSet
@@ -82,10 +81,6 @@ class PairContext:
     moving_vor: VoronoiGrid
     fixed_vor: VoronoiGrid
     nn_table: tuple[torch.Tensor, torch.Tensor]  # (moving index, distance) [Kf]
-    # [V, 8] baked NN rows (icp.bake_target_grid); None for a map above
-    # FUSED_GRID_MAX_VOXELS, which is served from the bare index map
-    fixed_grid: torch.Tensor | None
-    moving_grid: torch.Tensor | None
     # optional per-feature compact watershed region ids (int32 [N]); when
     # present, candidate feature selection grows whole regions around the
     # query inside the ROI box (FeaturesInRegions, itkLocationRegistration
@@ -103,23 +98,13 @@ def assemble_pair_context(
     mv: VoronoiGrid, fv: VoronoiGrid,
 ) -> PairContext:
     """The context of a pair from its stage-1 sets and maps: adds the derived
-    state, the fixed->moving descriptor-NN table (kernel K2) and the baked
-    NN-row grids."""
-
-    def grid(fs, vor):
-        if vor.index_vol.numel() > FUSED_GRID_MAX_VOXELS:
-            return None
-        return bake_target_grid(fs, vor)
-
+    state, the fixed->moving descriptor-NN table (kernel K2)."""
     with timers.span("stage1.nn_table"):
         nn_table = descriptor_nn_table(ds_f, ds_m)
-    with timers.span("stage1.grids"):
-        fixed_grid, moving_grid = grid(fs_f, fv), grid(fs_m, mv)
     return PairContext(
         moving_features=fs_m, fixed_features=fs_f,
         moving_descriptors=ds_m, fixed_descriptors=ds_f,
-        moving_vor=mv, fixed_vor=fv,
-        nn_table=nn_table, fixed_grid=fixed_grid, moving_grid=moving_grid,
+        moving_vor=mv, fixed_vor=fv, nn_table=nn_table,
     )
 
 
@@ -142,7 +127,7 @@ def prepare_pair(
     With the program's trace on (`utils.timers`) it records
     `stage1.prepare_pair` around `stage1.features`, `stage1.keypoints`,
     `stage1.descriptors` and `stage1.voronoi` a volume (attribute
-    `volume`), then `stage1.nn_table` and `stage1.grids`."""
+    `volume`), then `stage1.nn_table`."""
     if moving.device != fixed.device:
         raise ValueError(f"prepare_pair: volumes on {moving.device} and {fixed.device}")
     with timers.span("stage1.prepare_pair"):
@@ -309,7 +294,6 @@ def _measure(ctx: PairContext, res: ICPResult, moving_roi, fixed_roi, moving_lo,
         res, moving_roi, fixed_roi, ctx.fixed_vor, ctx.moving_vor, ecfg,
         plan.covariance(),
         moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
-        fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid,
     )
     return decision_measurements(res, cov_b, moving_lo, fixed_lo, ecfg.roi_mm)
 
@@ -365,7 +349,6 @@ def _wave_prologue(ctx: PairContext, cfg: PipelineConfig, query, init: Affine3D,
     refinement = Refinement(
         moving_roi, fixed_roi, ctx.fixed_vor, ctx.moving_vor, cfg.estimation, plan.icp(),
         moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
-        fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid,
     )
     return refinement, refinement.start(init), (moving_roi, fixed_roi, mlo, flo)
 
@@ -817,8 +800,7 @@ def register_location_rigid(
     res = register_candidate(
         moving_roi, fixed_roi, ctx.fixed_vor, ctx.moving_vor, init, cfg.estimation,
         plan.rigid(),
-        moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
-        fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid, model="rigid",
+        moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features, model="rigid",
     )
     return result_at(res, 0), best, usable.any()
 
@@ -852,7 +834,6 @@ def watch_candidate(
     res = register_candidate(
         moving_roi, fixed_roi, ctx.fixed_vor, ctx.moving_vor, init, cfg.estimation, draws,
         moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
-        fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid,
         progress_callback=progress_callback,
     )
     return result_at(res, 0)

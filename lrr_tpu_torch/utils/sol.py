@@ -7,7 +7,7 @@ for the same work, so that "fast" is a number and not a claim.
 `icp_iteration_sol` times one whole symmetric ICP iteration over a wave of
 candidate lanes, the unit the serving path repeats 50-70 times a wave: the
 port's own `_sample_matches_packed` (a window of each lane's source rows,
-mapped, matched by one row read from the baked Voronoi grid, both
+mapped, matched through the bare Voronoi map and the target rows, both
 directions; kernel K5 on the card) chained into `_estimate_ls_packed` (robust weighting, then K1 and
 the 12x12 solve).  Iterations are dependent: each feeds its transform to the
 next, as in the serving loop.  A sampling-only ablation splits the iteration
@@ -17,7 +17,7 @@ same work.
 
 The light bound counts only the traffic and operations the iteration must
 do, per lane and direction: the window of `cap` source rows and the `cap`
-random grid rows (32 bytes each), and the normal-equation operations
+random map reads (a 32-byte sector each), and the normal-equation operations
 (`_flops_min`).  Robust weighting (sorts, medians) is real work outside the
 bound, so `fraction_of_light` is a conservative figure for the whole
 iteration.  The random gather is priced at the card's measured random-row
@@ -31,7 +31,7 @@ loop (`torch.profiler`), tells the kernels' own distance to light from the
 host's share of the iteration.
 
 `sample_matches_bound_ms` is K5's least time by bytes over the distinct
-target rows its windows read.
+map sectors and target rows its windows read.
 
 `kernel_sol_report` gives the iteration at lrr_tpu's two wave shapes and the
 195-d descriptor nearest neighbour at 4096 x 4096 through K2, with the
@@ -120,21 +120,21 @@ def voronoi_bound_ms(n_vox: int, n: int, pairs: int) -> tuple[float, str]:
 SAMPLE_POSITION_BYTES = 8 + 2 * ROW_BYTES + 4 + 1
 
 
-def sample_matches_bound_ms(lanes: int, m: int, n_src: int, target_rows: int,
+def sample_matches_bound_ms(lanes: int, m: int, n_src: int, target_reads: int,
                             gather_gb_s: float | None = None) -> tuple[float, str]:
     """K5's least time for `lanes` x `m` window positions over a source
-    table of `n_src` rows whose matches read `target_rows` distinct target
-    rows (grid rows, or without a grid the map sectors and feature rows):
-    every position's `SAMPLE_POSITION_BYTES`, the source table and each
-    distinct target row (32 bytes) moved once, at the streaming peak (the
+    table of `n_src` rows whose matches make `target_reads` distinct 32-byte
+    target reads (the map sectors, at most one a match, and the feature rows
+    they name): every position's `SAMPLE_POSITION_BYTES`, the source table
+    and each distinct target read moved once, at the streaming peak (the
     lane-mask bytes, at most one a position, are left out).  With
-    `gather_gb_s` the target rows are priced at that random-row rate
+    `gather_gb_s` the target reads are priced at that random-row rate
     instead (`measured_gather_roofline`'s, PyTorch's own gathers): what the
     reads would cost if no two positions shared a sector's neighbourhood, a
     yardstick K5 can beat, not a bound."""
     stream = lanes * m * SAMPLE_POSITION_BYTES + n_src * ROW_BYTES
     rate = PEAK_HBM_GBS if gather_gb_s is None else gather_gb_s
-    ms = (target_rows * ROW_BYTES / (rate * 1e9) + stream / (PEAK_HBM_GBS * 1e9)) * 1e3
+    ms = (target_reads * ROW_BYTES / (rate * 1e9) + stream / (PEAK_HBM_GBS * 1e9)) * 1e3
     return ms, "bytes"
 
 
@@ -223,17 +223,16 @@ def measured_gather_roofline(device=None) -> dict | None:
 
     `gather_gb_s_padded_small` / `gather_gb_s_dense_big` (lrr_tpu's keys):
     GB/s of 524,288 32-byte rows (an iteration of the bench wave) gathered at
-    random from a [V, 8] float32 table, the port's grid layout
-    (estimation/icp.py), at V = 2M voxels and at V = 61M (63,963,136: the
+    random from a [V, 8] float32 table, the layout of lrr_tpu's baked grid
+    (`icp.bake_target_grid`), at V = 2M voxels and at V = 61M (63,963,136: the
     working set lrr_tpu measured for the reference map).  On the TPU the two
     keys were two layouts; on the card both are the one layout at two
     working sets (64 MB, beside the 50 MB L2, and 2 GB).  Each is the faster
     of two PyTorch formulations, both under `gather_gb_s_by_op`: `rows`,
-    `table[ids]` as the sampler gathers (one thread block a row), and
-    `elements`, `torch.take` of the rows' 8 floats (one thread an element,
-    reading a 32 MB index besides).  A kernel of the port's own could pass
-    both, so the bound they give is a floor the card's PyTorch reaches, not
-    the hardware's.  `window_copy_gb_s`: a contiguous 256 MB copy, read and
+    `table[ids]` (one thread block a row), and `elements`, `torch.take` of
+    the rows' 8 floats (one thread an element, reading a 32 MB index
+    besides).  A kernel of the port's own could pass both, so the bound
+    they give is a floor the card's PyTorch reaches, not the hardware's.  `window_copy_gb_s`: a contiguous 256 MB copy, read and
     write counted (the match windows' streaming rate).
     `i32_self_gather_melem_s`: the int32 `p[p]` self-gather of the
     watershed's pointer jump over 61M entries, million elements a second."""
@@ -309,14 +308,15 @@ def synthetic_iteration_inputs(lanes: int, n_features: int, map_side: int, K: in
 @dataclasses.dataclass
 class IterationWave:
     """The port's sampling state for `iterate`: per direction the lanes'
-    sources, the target map and its baked row grid; the window offsets."""
+    sources, the target map and the target rows it indexes; the window
+    offsets."""
 
     src_m: icp._PackedSource
     src_f: icp._PackedSource
     vor_f: icp.VoronoiGrid
     vor_m: icp.VoronoiGrid
-    grid_f: torch.Tensor  # [V, 8]
-    grid_m: torch.Tensor
+    dst_f: torch.Tensor  # [n, 8]
+    dst_m: torch.Tensor
     number: torch.Tensor  # [L] matches a window
     offs: torch.Tensor  # [2, k_hi + 1]
     cap: int
@@ -327,9 +327,8 @@ def iteration_wave(inputs: dict[str, np.ndarray], cap: int, device) -> Iteration
     """`synthetic_iteration_inputs` as the port's sampling state on `device`.
     A lane's source is its own 2n rows, in order, all valid, so the cyclic
     window at an offset below n is lrr_tpu's contiguous slice of them.  Every
-    voxel of the random maps names a feature, so the baked grid is the
-    target rows gathered by the map (`icp.bake_target_grid` without empty
-    voxels)."""
+    voxel of the random maps names a feature, so the rows matched are
+    lrr_tpu's grid rows."""
     dev = torch.device(device)
     L, two_n = inputs["tabs_m"].shape[:2]
     order = (torch.arange(L)[:, None] * two_n + torch.arange(two_n)[None, :]).to(dev)
@@ -339,17 +338,14 @@ def iteration_wave(inputs: dict[str, np.ndarray], cap: int, device) -> Iteration
     def t_(name):
         return torch.from_numpy(inputs[name]).to(dev)
 
-    def target(side):
-        vor = icp.VoronoiGrid(t_(f"vor_{side}"), torch.zeros(3, device=dev),
-                              torch.ones(3, device=dev))
-        return vor, t_(f"dst_{side}")[vor.index_vol.reshape(-1).long()]
+    def vor(side):
+        return icp.VoronoiGrid(t_(f"vor_{side}"), torch.zeros(3, device=dev),
+                               torch.ones(3, device=dev))
 
-    vor_f, grid_f = target("f")
-    vor_m, grid_m = target("m")
     return IterationWave(
         src_m=icp._PackedSource(t_("tabs_m").reshape(-1, 8), lane_mask, order, valid),
         src_f=icp._PackedSource(t_("tabs_f").reshape(-1, 8), lane_mask, order, valid),
-        vor_f=vor_f, vor_m=vor_m, grid_f=grid_f, grid_m=grid_m,
+        vor_f=vor("f"), vor_m=vor("m"), dst_f=t_("dst_f"), dst_m=t_("dst_m"),
         number=torch.full((L,), cap, device=dev), offs=t_("offs").long(), cap=cap,
         cfg=EstimationConfig(max_matches=cap),
     )
@@ -357,7 +353,7 @@ def iteration_wave(inputs: dict[str, np.ndarray], cap: int, device) -> Iteration
 
 def iterate(w: IterationWave, A: torch.Tensor, t: torch.Tensor, i: int, with_ls: bool = True):
     """Iteration `i` of every lane (lrr_tpu's `lane_iter`): both directions'
-    windows at offsets `w.offs[:, i]` matched through the grids, then the
+    windows at offsets `w.offs[:, i]` matched through the maps, then the
     robust estimate (K1 and the solve).  Returns (A, t) moved 1e-3 of the way
     to the estimate (random matches hold no consistent transform; full steps
     would degenerate A), and the estimate.  Without `with_ls`, sampling
@@ -365,10 +361,10 @@ def iterate(w: IterationWave, A: torch.Tensor, t: torch.Tensor, i: int, with_ls:
     sum of the gathered rows, which keeps them live, and no estimate."""
     L = A.shape[0]
     trans = Affine3D(A=A, t=t, center=torch.zeros_like(t))
-    fwd = icp._sample_matches_packed(w.src_m, w.grid_f, w.vor_f, trans, w.number, w.cap,
-                                     w.offs[0, i].expand(L))
-    bwd = icp._sample_matches_packed(w.src_f, w.grid_m, w.vor_m, trans.inverse(), w.number,
-                                     w.cap, w.offs[1, i].expand(L))
+    fwd = icp._sample_matches_packed(w.src_m, w.vor_f, trans, w.number, w.cap,
+                                     w.offs[0, i].expand(L), dst_rows=w.dst_f)
+    bwd = icp._sample_matches_packed(w.src_f, w.vor_m, trans.inverse(), w.number, w.cap,
+                                     w.offs[1, i].expand(L), dst_rows=w.dst_m)
     if not with_ls:
         s = (fwd.txyz.sum((1, 2)) + fwd.tdir.sum((1, 2)) + fwd.weight.sum(1)
              + bwd.txyz.sum((1, 2)) + bwd.fdir.sum((1, 2)) + bwd.weight.sum(1))

@@ -18,16 +18,20 @@ an ellipsoid) is timed through K4 (`voronoi_nearest`, with its bound from the
 pairs it evaluated) where the checkout has it, and through the plain blocked
 build always (5 timings: it takes about a second).  The ICP's match sampler
 is timed at copd512's wave shapes (512 lanes at 1,024 / 2,048 / 4,096 / 8,000
-matches on a baked grid of copd512's map, `chip_smoke.k5_inputs`) through the
+matches through copd512's map, `chip_smoke.k5_inputs`) through the
 checkout's `_sample_matches_packed` (one direction, as the ICP calls it),
 and where the checkout has K5 also through `kernels.sample_matches` and its
 plain version `icp.sample_matches_plain`, with K5's bound over the distinct
-target rows the windows read.  Prints one JSON line.
+map sectors and target rows the windows read.  A checkout whose sampler
+still takes a baked [V, 8] NN-row grid is timed through the grid (`grid`,
+the path its program took) and through the bare map (`map`).  Prints one
+JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import math
 import os
@@ -109,24 +113,35 @@ def main() -> None:
     from lrr_tpu_torch.estimation import icp
     from lrr_tpu_torch.utils import sol
 
-    src, grid, vor, trans, number, offset, dst_rows = cs.k5_inputs(
-        rng, 512, 65536, cs.COPD512_MAP, dev)
+    inputs = cs.k5_inputs(rng, 512, 65536, cs.COPD512_MAP, dev)
+    src, vor, trans, number, offset, dst_rows = inputs
+    modes = {"map": (src, vor)}
+    if "grid" in inspect.signature(icp._sample_matches_packed).parameters:
+        flat = vor.index_vol.reshape(-1).long()
+        grid = torch.where((flat >= 0)[:, None], dst_rows[flat.clamp(min=0)],
+                           torch.zeros((1, 8), device=dev))
+        del flat
+        modes = {"grid": (src, grid, vor), "map": (src, None, vor)}
     gather = sol.measured_gather_roofline(dev)["gather_gb_s_dense_big"]
     out["sampler"]["gather_gb_s"] = gather
     for cap in cs.K5_CAPS:
-        args = (src, grid, vor, trans, number, cap, offset)
-        rec = {"sampler": both(lambda: icp._sample_matches_packed(*args, dst_rows=dst_rows))}
-        if hasattr(kernels, "sample_matches"):
-            rec["k5"] = both(lambda: kernels.sample_matches(*args, dst_rows=dst_rows, p0=0, m=cap))
-            rec["plain_us"] = 1e3 * timer.ms(
-                lambda: icp.sample_matches_plain(*args, dst_rows=dst_rows, p0=0, m=cap), reps=5)
-            rows = cs.k5_target_rows((src, grid, vor, trans, number, offset, dst_rows), cap,
-                                     "grid")
-            rec["target_reads"] = rows
-            rec["bound_us"] = 1e3 * sol.sample_matches_bound_ms(512, cap, 65536, rows)[0]
-            rec["random_rows_us"] = 1e3 * sol.sample_matches_bound_ms(512, cap, 65536, rows,
-                                                                      gather)[0]
-        out["sampler"][f"512x{cap}_grid"] = rec
+        rec = {}
+        for mode, head in modes.items():
+            args = (*head, trans, number, cap, offset)
+            r = {"sampler": both(lambda: icp._sample_matches_packed(*args, dst_rows=dst_rows))}
+            if hasattr(kernels, "sample_matches"):
+                r["k5"] = both(lambda: kernels.sample_matches(*args, dst_rows=dst_rows, p0=0,
+                                                              m=cap))
+                r["plain_us"] = 1e3 * timer.ms(
+                    lambda: icp.sample_matches_plain(*args, dst_rows=dst_rows, p0=0, m=cap),
+                    reps=5)
+            rec[mode] = r
+        reads = cs.k5_target_reads(inputs, cap)
+        rec["target_reads"] = reads
+        rec["bound_us"] = 1e3 * sol.sample_matches_bound_ms(512, cap, 65536, reads)[0]
+        rec["random_rows_us"] = 1e3 * sol.sample_matches_bound_ms(512, cap, 65536, reads,
+                                                                  gather)[0]
+        out["sampler"][f"512x{cap}"] = rec
     print(json.dumps(out), flush=True)
 
 

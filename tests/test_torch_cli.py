@@ -29,6 +29,7 @@ import lrr_tpu_torch.viz.panels as tviz
 from lrr_tpu_torch.config import (
     DescriptorConfig, FeatureConfig, KeypointConfig, PipelineConfig,
 )
+from lrr_tpu_torch.estimation.icp import bake_target_grid
 from lrr_tpu_torch.io import read_descriptors, read_features, write_mhd
 from lrr_tpu_torch.models.affine import Affine3D
 from lrr_tpu_torch.pipeline import artifacts, batch
@@ -199,7 +200,8 @@ def test_context_from_files_equals_prepare_pair(work):
         va, vb = getattr(files, side + "_vor"), getattr(mem, side + "_vor")
         for f in ("index_vol", "origin", "spacing"):
             assert torch.equal(getattr(va, f), getattr(vb, f)), (side, f)
-        assert torch.equal(getattr(files, side + "_grid"), getattr(mem, side + "_grid"))
+        # the target rows every match reads through the map
+        assert torch.equal(bake_target_grid(a, va), bake_target_grid(b, vb))
     # the NN table over live fixed keypoints, in compacted moving indices
     live_f, live_m = mem.fixed_descriptors.keypoints.mask, mem.moving_descriptors.keypoints.mask
     compact = torch.cumsum(live_m.long(), 0) - 1

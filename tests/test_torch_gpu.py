@@ -545,9 +545,8 @@ def test_segmentation_and_region_selection_are_bit_identical_run_to_run(cuda):
 @pytest.mark.gpu
 def test_region_entry_points_on_gpu(cuda):
     """On the card: `segment_pair` attaches the CPU's region ids; the staged
-    run, the refine-all run and the run from the bare index maps select the
-    same candidates; the rigid refinement gives a rotation; the replay calls
-    back once an iteration."""
+    run and the refine-all run select the same candidates; the rigid
+    refinement gives a rotation; the replay calls back once an iteration."""
     import dataclasses
 
     from lrr_tpu_torch.pipeline import registration
@@ -579,11 +578,6 @@ def test_region_entry_points_on_gpu(cuda):
     every = registration.register_locations(ctx, queries, cfg, svm, plan)
     both = (staged.selected >= 0) & (every.selected >= 0)
     assert bool(every.refined.all()) and torch.equal(staged.selected[both], every.selected[both])
-    bare = register_locations_staged(
-        dataclasses.replace(ctx, fixed_grid=None, moving_grid=None), queries, cfg, svm, plan)
-    assert torch.equal(bare.selected, staged.selected)
-    assert torch.equal(bare.trans.A, staged.trans.A)
-    assert torch.equal(bare.probability, staged.probability)
 
     one = plan.query(0)
     n0 = kernels.LAUNCHES["normal_equations"]
@@ -1250,11 +1244,11 @@ def test_a_traced_bucket_gives_the_rows_of_an_untraced_one(cuda):
 
 
 def _k5_case(cuda, L=24, n_src=3000, n_dst=2500, shape=(40, 48, 56), seed=0):
-    """(src, grid, vor, trans, number, offset, dst_rows) on the card: rows
+    """(src, vor, trans, number, offset, dst_rows) on the card: rows
     with every tag (0 = padding), a quarter of the sources on exact half-
     voxel coordinates (ties for the half-to-even rounding); lane 0's mask
     empty (valid count 0), lane 1's one feature; an index map with 20 %
-    empty voxels and its baked grid; transforms near the identity, lane 2's
+    empty voxels; transforms near the identity, lane 2's
     the identity (the ties stay ties), lane 3's far outside the map (every
     voxel clamped); offsets up to 2^62."""
     from lrr_tpu_torch.estimation import icp
@@ -1284,9 +1278,6 @@ def _k5_case(cuda, L=24, n_src=3000, n_dst=2500, shape=(40, 48, 56), seed=0):
     index = rng.integers(0, n_dst, shape)
     index[rng.uniform(size=shape) < 0.2] = -1
     vor = icp.VoronoiGrid(t(index, torch.int32), t(origin), t(spacing))
-    flat = vor.index_vol.reshape(-1).long()
-    grid = torch.where((flat >= 0)[:, None], dst_rows[flat.clamp(min=0)],
-                       torch.zeros((1, 8), device=cuda))
     A = np.eye(3) + 0.03 * rng.standard_normal((L, 3, 3))
     tr = rng.uniform(-2, 2, (L, 3))
     center = rng.uniform(origin, top, (L, 3))
@@ -1296,17 +1287,16 @@ def _k5_case(cuda, L=24, n_src=3000, n_dst=2500, shape=(40, 48, 56), seed=0):
     number = t(rng.integers(0, 10000, L), torch.int64)
     number[-1] = 1 << 40
     offset = t(rng.integers(0, 1 << 62, L), torch.int64)
-    return src, grid, vor, trans, number, offset, dst_rows
+    return src, vor, trans, number, offset, dst_rows
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("path", ["grid", "map"])
 @pytest.mark.parametrize("cap,n_src,ranks,rank", [
     (1024, 3000, 1, 0), (2048, 3000, 1, 0), (4096, 3000, 1, 0), (8000, 9000, 1, 0),
     (8000, 9000, 3, 1), (8000, 9000, 3, 2), (2048, 3000, 2, 1)])
-def test_sample_matches_kernel_equals_the_plain_sampler(cuda, path, cap, n_src, ranks, rank):
+def test_sample_matches_kernel_equals_the_plain_sampler(cuda, cap, n_src, ranks, rank):
     """K5 against `icp.sample_matches_plain` on the card, bit for bit in the
-    four outputs, on the grid and the bare-map paths: capacities of 1,024 to
+    four outputs: capacities of 1,024 to
     8,000 (4,096 over 3,000 sources is cut to 3,000; 8,000 is ragged at 256
     threads a block), mesh blocks with p0 > 0 (the last padded past the
     capacity), valid counts 0 and 1, offsets up to 2^62, points mapped
@@ -1315,15 +1305,14 @@ def test_sample_matches_kernel_equals_the_plain_sampler(cuda, path, cap, n_src, 
     from lrr_tpu_torch.estimation import icp
     from lrr_tpu_torch.pipeline.wave_graph import first_difference
 
-    src, grid, vor, trans, number, offset, dst_rows = _k5_case(cuda, n_src=n_src)
-    grid = grid if path == "grid" else None
+    src, vor, trans, number, offset, dst_rows = _k5_case(cuda, n_src=n_src)
     c = min(cap, n_src)
     m = -(-c // ranks)
-    args = (src, grid, vor, trans, number, c, offset)
+    args = (src, vor, trans, number, c, offset)
     before = kernels.counts()
     got = kernels.sample_matches(*args, dst_rows=dst_rows, p0=rank * m, m=m)
     launches, shapes = (kernels.counts_since(before)[i] for i in (0, 5))
-    assert launches == {"sample_matches": 1} and shapes == {(24, m, path): 1}
+    assert launches == {"sample_matches": 1} and shapes == {(24, m): 1}
     want = icp.sample_matches_plain(*args, dst_rows=dst_rows, p0=rank * m, m=m)
     assert first_difference(got, want) is None
     assert first_difference(kernels.sample_matches(*args, dst_rows=dst_rows, p0=rank * m, m=m),
@@ -1337,42 +1326,41 @@ def test_sample_matches_kernel_equals_the_plain_sampler(cuda, path, cap, n_src, 
 @pytest.mark.gpu
 def test_sample_matches_kernel_refuses_bad_inputs(cuda):
     """Wrong dtype, device, shape or contiguity raises before a launch, as
-    does a grid-less call without target rows or a window past the
-    permutation."""
+    does a window past the permutation."""
     import dataclasses
 
     from lrr_tpu_torch.models.affine import Affine3D
 
-    src, grid, vor, trans, number, offset, dst_rows = _k5_case(cuda, L=4)
-    ok = (src, grid, vor, trans, number, 1024, offset)
-    kernels.sample_matches(*ok, dst_rows=None, p0=0, m=1024)
+    src, vor, trans, number, offset, dst_rows = _k5_case(cuda, L=4)
+    ok = (src, vor, trans, number, 1024, offset, dst_rows)
+    kernels.sample_matches(*ok[:-1], dst_rows=dst_rows, p0=0, m=1024)
     bad = [
         (dataclasses.replace(src, order=src.order.int()),) + ok[1:],
         (dataclasses.replace(src, lane_mask=src.lane_mask.float()),) + ok[1:],
         (dataclasses.replace(src, rows=src.rows.cpu()),) + ok[1:],
         (dataclasses.replace(src, rows=src.rows[:, :7]),) + ok[1:],
-        ok[:1] + (grid.double(),) + ok[2:],
-        ok[:1] + (grid[:-1],) + ok[2:],
-        ok[:2] + (dataclasses.replace(vor, index_vol=vor.index_vol.long()),) + ok[3:],
-        ok[:3] + (Affine3D(trans.A.transpose(1, 2), trans.t, trans.center),) + ok[4:],
-        ok[:3] + (Affine3D(trans.A[:3], trans.t[:3], trans.center[:3]),) + ok[4:],
-        ok[:4] + (number.int(),) + ok[5:],
-        ok[:6] + (torch.stack([offset, offset], 1)[:, 0],),
-        ok[:1] + (None,) + ok[2:],
-        ok[:5] + (5000,) + ok[6:],
+        ok[:1] + (dataclasses.replace(vor, index_vol=vor.index_vol.long()),) + ok[2:],
+        ok[:2] + (Affine3D(trans.A.transpose(1, 2), trans.t, trans.center),) + ok[3:],
+        ok[:2] + (Affine3D(trans.A[:3], trans.t[:3], trans.center[:3]),) + ok[3:],
+        ok[:3] + (number.int(),) + ok[4:],
+        ok[:4] + (5000,) + ok[5:],
+        ok[:5] + (torch.stack([offset, offset], 1)[:, 0],) + ok[6:],
+        ok[:6] + (dst_rows.double(),),
+        ok[:6] + (dst_rows[:, :7],),
+        ok[:6] + (dst_rows.cpu(),),
     ]
     for args in bad:
         with pytest.raises(ValueError):
-            kernels.sample_matches(*args, dst_rows=None, p0=0, m=1024)
+            kernels.sample_matches(*args[:-1], dst_rows=args[-1], p0=0, m=1024)
 
 
 @pytest.mark.gpu
 def test_sample_matches_kernel_on_both_transforms_of_a_wave(cuda, monkeypatch):
     """A bench wave's refinement after its MUSE iteration: K5 equals the
-    plain sampler on the forward transform (moving sources, fixed grid) and
-    the inverse (fixed sources, moving grid), through the grids and the bare
-    maps.  One `Refinement.step` launches K5 twice, one a direction; over an
-    eager served run every sampler call is one launch."""
+    plain sampler on the forward transform (moving sources, fixed map) and
+    the inverse (fixed sources, moving map).  One `Refinement.step` launches
+    K5 twice, one a direction; over an eager served run every sampler call
+    is one launch."""
     from lrr_tpu_torch.estimation import icp, measurements
     from lrr_tpu_torch.pipeline import registration
     from lrr_tpu_torch.pipeline.wave_graph import first_difference
@@ -1385,18 +1373,17 @@ def test_sample_matches_kernel_on_both_transforms_of_a_wave(cuda, monkeypatch):
         ctx, cfg, *registration._wave_inputs(q, inits, plan, lanes, cands))
     cap = r.caps[-1]
     offs = r.draws.offsets_f[:, 3].contiguous()
-    for src, grid, vor, trans, dst in (
-            (r.src_m, r.fixed_grid, r.fixed_vor, c.trans, r.src_f.rows),
-            (r.src_f, r.moving_grid, r.moving_vor, c.trans.inverse(), r.src_m.rows)):
+    for src, vor, trans, dst in (
+            (r.src_m, r.fixed_vor, c.trans, r.src_f.rows),
+            (r.src_f, r.moving_vor, c.trans.inverse(), r.src_m.rows)):
         trans = icp.Affine3D(trans.A.contiguous(), trans.t.contiguous(),
                              trans.center.contiguous())
-        for g in (grid, None):
-            args = (src, g, vor, trans, c.number_matches, min(cap, src.order.shape[1]), offs)
-            m = args[5]
-            got = kernels.sample_matches(*args, dst_rows=dst, p0=0, m=m)
-            assert first_difference(got, icp.sample_matches_plain(
-                *args, dst_rows=dst, p0=0, m=m)) is None
-            assert bool(got[3].any())
+        m = min(cap, src.order.shape[1])
+        args = (src, vor, trans, c.number_matches, m, offs)
+        got = kernels.sample_matches(*args, dst_rows=dst, p0=0, m=m)
+        assert first_difference(got, icp.sample_matches_plain(
+            *args, dst_rows=dst, p0=0, m=m)) is None
+        assert bool(got[3].any())
 
     before = kernels.counts()
     r.step(c, 0)

@@ -137,7 +137,7 @@ def test_packed_rows_and_grid_match():
         np.asarray(jicp._pack_features(jctx.moving_features)), rtol=1e-6, atol=1e-6,
     )
     np.testing.assert_allclose(
-        tctx.fixed_grid.numpy(),
+        ticp.bake_target_grid(tctx.fixed_features, tctx.fixed_vor).numpy(),
         np.asarray(jicp.bake_target_grid(jctx.fixed_features, jctx.fixed_vor)),
         rtol=1e-6, atol=1e-6,
     )
@@ -238,10 +238,10 @@ def test_register_candidate_iteration0_matches(lanes):
     src_m = ticp._pack_source(draws.scores_m, ticp._pack_features(tctx.moving_features), mov.mask)
     src_f = ticp._pack_source(draws.scores_f, ticp._pack_features(tctx.fixed_features), fix.mask)
     n = torch.full((init.A.shape[0],), tcfg.initial_matches)
-    fwd = ticp._sample_matches_packed(src_m, tctx.fixed_grid, tctx.fixed_vor, init, n,
-                                      cap0, draws.offsets_f[:, 0])
-    bwd = ticp._sample_matches_packed(src_f, tctx.moving_grid, tctx.moving_vor,
-                                      init.inverse(), n, cap0, draws.offsets_b[:, 0])
+    fwd = ticp._sample_matches_packed(src_m, tctx.fixed_vor, init, n, cap0,
+                                      draws.offsets_f[:, 0], dst_rows=src_f.rows)
+    bwd = ticp._sample_matches_packed(src_f, tctx.moving_vor, init.inverse(), n, cap0,
+                                      draws.offsets_b[:, 0], dst_rows=src_m.rows)
     got = ticp._estimate_ls_packed(init, fwd, bwd, True, tcfg)[0]
     _theta_close(got, want, 1e-4)
 
@@ -256,7 +256,6 @@ def test_register_candidate_matches(lanes):
         mov, fix, tctx.fixed_vor, tctx.moving_vor, tp.torch_affine(L["init"]),
         L["tcfg"].estimation, L["plan"].icp(),
         moving_targets=tctx.moving_features, fixed_targets=tctx.fixed_features,
-        fixed_grid=tctx.fixed_grid, moving_grid=tctx.moving_grid,
     )
     jres = L["jres"]
     _theta_close(res.trans, jres.trans, 5e-3)
@@ -286,8 +285,7 @@ def test_measurements_and_probability_match(lanes):
     cov_t = tmeas.backward_covariance(
         res_t, mov, fix, tctx.fixed_vor, tctx.moving_vor, L["tcfg"].estimation,
         L["plan"].covariance(), moving_targets=tctx.moving_features,
-        fixed_targets=tctx.fixed_features, fixed_grid=tctx.fixed_grid,
-        moving_grid=tctx.moving_grid,
+        fixed_targets=tctx.fixed_features,
     )
     err = np.abs(cov_t.numpy() - np.asarray(jcov)).reshape(len(mlo), -1).max(1)
     scale = np.abs(np.asarray(jcov)).reshape(len(mlo), -1).max(1)

@@ -452,7 +452,7 @@ def test_pair_context_crosses_the_packages(tmp_path):
                  (back.fixed_region_labels, tctx.fixed_region_labels)):
         assert a.dtype == torch.int32 and torch.equal(a, b)
     assert torch.equal(back.nn_table[0], tctx.nn_table[0])
-    assert torch.equal(back.fixed_grid, tctx.fixed_grid)
+    assert torch.equal(back.nn_table[1], tctx.nn_table[1])
     # lrr_tpu's own save (no region ids) into the port
     jp = str(tmp_path / "j.npz")
     jart.save_pair_context(jp, jctx)

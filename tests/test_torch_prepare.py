@@ -7,6 +7,7 @@ equality, the exact Voronoi builds to bit equality with each other and to
 lrr_tpu's map except at proven ties.
 """
 
+import dataclasses
 import functools
 import math
 
@@ -26,12 +27,13 @@ from lrr_tpu.pipeline.registration import register_locations_staged as jstaged
 from lrr_tpu.utils.synthetic import make_pair as jmake_pair
 from lrr_tpu.verify import load_default_verifier as jload_svm
 from lrr_tpu_torch.config import DescriptorConfig
-from lrr_tpu_torch.estimation.icp import VoronoiGrid
+from lrr_tpu_torch.estimation.icp import bake_target_grid
 from lrr_tpu_torch.models.affine import Affine3D
 from lrr_tpu_torch.ops import descriptors as tdesc
 from lrr_tpu_torch.ops import kernels
 from lrr_tpu_torch.ops import voronoi as tvor
 from lrr_tpu_torch.pipeline import registration as treg
+from lrr_tpu_torch.pipeline.artifacts import load_pair_context
 from lrr_tpu_torch.types import Volume
 from lrr_tpu_torch.verify.svm import load_default_verifier as tload_svm
 
@@ -352,8 +354,9 @@ def test_prepare_pair_matches_lrr_tpu():
     """lrr_tpu's volumes through both stage 1s.  Measured: feature and
     keypoint sets equal in order and mask.  Asserted: masks equal; feature
     positions to 1e-3 mm; descriptors to 1e-4; the maps equal except at
-    proven ties; the NN table equal on live rows; the grids' rows equal to
-    what the map and the features give."""
+    proven ties; the NN table equal on live rows; the rows
+    `icp.bake_target_grid` bakes from the map equal to what the map and the
+    features give."""
     _, _, _, jctx, tctx = small_pair()
     for side in ("moving", "fixed"):
         jf, tf = getattr(jctx, side + "_features"), getattr(tctx, side + "_features")
@@ -374,9 +377,10 @@ def test_prepare_pair_matches_lrr_tpu():
     live = np.asarray(jctx.fixed_descriptors.keypoints.mask)
     np.testing.assert_array_equal(tctx.nn_table[0].numpy()[live], np.asarray(jctx.nn_table[0])[live])
     np.testing.assert_allclose(tctx.nn_table[1].numpy()[live], np.asarray(jctx.nn_table[1])[live], rtol=1e-4)
-    assert tctx.fixed_grid.shape == (tctx.fixed_vor.index_vol.numel(), 8)
+    grid = bake_target_grid(tctx.fixed_features, tctx.fixed_vor)
+    assert grid.shape == (tctx.fixed_vor.index_vol.numel(), 8)
     flat = tctx.fixed_vor.index_vol.reshape(-1).long()
-    np.testing.assert_array_equal(tctx.fixed_grid[:, :3].numpy(), tctx.fixed_features.xyz[flat].numpy())
+    np.testing.assert_array_equal(grid[:, :3].numpy(), tctx.fixed_features.xyz[flat].numpy())
 
 
 def test_prepare_pair_refuses_volumes_on_two_devices():
@@ -386,33 +390,35 @@ def test_prepare_pair_refuses_volumes_on_two_devices():
         treg.prepare_pair(vol.to("meta"), vol, tcfg)
 
 
-def test_no_grid_above_the_voxel_gate_and_serving_says_so(monkeypatch):
-    """A map above the gate gets no baked grid, as in lrr_tpu; serving from
-    such a context reads the bare index map of that side and says the same
-    as serving from a context with both grids."""
-    from lrr_tpu_torch.sampling import draw_sampling_plan
+def _tensors(obj):
+    """Every tensor a context holds, through its dataclasses and tuples."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
+    elif isinstance(obj, tuple):
+        for x in obj:
+            yield from _tensors(x)
 
-    _, _, _, _, tctx = small_pair()
-    _, tcfg = tp.small_configs()
-    parts = (
-        tctx.moving_features, tctx.fixed_features, tctx.moving_descriptors, tctx.fixed_descriptors,
-        tctx.moving_vor, VoronoiGrid(tctx.fixed_vor.index_vol[:8, :8, :8], tctx.fixed_vor.origin,
-                                     tctx.fixed_vor.spacing),
-    )
-    both = treg.assemble_pair_context(*parts)
-    monkeypatch.setattr(treg, "FUSED_GRID_MAX_VOXELS", 1000)
-    ctx = treg.assemble_pair_context(*parts)
-    assert ctx.moving_grid is None and ctx.fixed_grid is not None
-    assert both.moving_grid is not None
-    queries = torch.as_tensor(tp.small_queries())
-    plan = draw_sampling_plan(torch.Generator().manual_seed(0), len(queries), tcfg,
-                              ctx.moving_features.capacity, ctx.fixed_features.capacity)
-    got = treg.register_locations_staged(ctx, queries, tcfg, tload_svm(), plan)
-    want = treg.register_locations_staged(both, queries, tcfg, tload_svm(), plan)
-    for name in ("selected", "verified", "refined", "probability"):
-        assert torch.equal(getattr(got, name), getattr(want, name)), name
-    assert torch.equal(got.trans.A, want.trans.A) and torch.equal(got.trans.t, want.trans.t)
-    assert bool(got.refined.any())
+
+@pytest.mark.parametrize("source", ["prepare_pair", "load_pair_context"])
+def test_pair_context_holds_maps_not_grids(source):
+    """A context, from the port's stage 1 or from a saved file, holds each
+    side's bare int32 Voronoi map over its feature set and no baked NN-row
+    grid: no field names one, and nothing in it is larger than a map."""
+    if source == "prepare_pair":
+        ctx = small_pair()[4]
+    else:
+        ctx = load_pair_context(tp.SMALL + ".npz", device="cpu")
+    assert not [f.name for f in dataclasses.fields(ctx) if "grid" in f.name]
+    maps = []
+    for side in ("moving", "fixed"):
+        vor, fs = getattr(ctx, side + "_vor"), getattr(ctx, side + "_features")
+        assert vor.index_vol.dtype == torch.int32 and vor.index_vol.dim() == 3
+        assert -1 <= int(vor.index_vol.min()) and int(vor.index_vol.max()) < fs.capacity
+        maps.append(vor.index_vol.numel())
+    assert max(t.numel() for t in _tensors(ctx)) == max(maps)
 
 
 def gt_errors(trans_A, trans_t, trans_c, selected, queries, true):

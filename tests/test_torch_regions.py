@@ -22,6 +22,7 @@ from lrr_tpu.pipeline import regions as jregions
 from lrr_tpu.pipeline import registration as jreg
 from lrr_tpu.types import FeatureSet as JFeatureSet
 from lrr_tpu.verify import load_default_verifier as jload_svm
+from lrr_tpu_torch.estimation import icp as ticp
 from lrr_tpu_torch.ops import watershed as tw
 from lrr_tpu_torch.pipeline import regions as tregions
 from lrr_tpu_torch.pipeline import registration as treg
@@ -472,36 +473,21 @@ def test_rank_key_matches(region_slice, monkeypatch, rank_key):
         assert np.all(got[use] <= np.pi / 2 + 1e-6)
 
 
-def test_bare_index_map_equals_baked_grids(region_slice):
-    """A context without baked grids (a map over FUSED_GRID_MAX_VOXELS) is
-    served from the index maps and gives the same bits."""
+def test_serving_never_bakes_a_grid(region_slice, monkeypatch):
+    """Staged serving and refine-all match through the bare index maps: with
+    `icp.bake_target_grid` (the JAX package's NN-row bake) made to raise,
+    both serve and give the bits of the unpatched runs."""
     S = region_slice
-    bare_ctx = dataclasses.replace(S["tctx"], fixed_grid=None, moving_grid=None)
-    args = (_t(S["queries"]), S["tcfg"], tload_svm(), S["plan"])
-    grid = treg.register_locations_staged(S["tctx"], *args)
-    bare = treg.register_locations_staged(bare_ctx, *args)
-    for name in ("selected", "verified", "probability", "measurements", "covar", "rank"):
-        assert torch.equal(getattr(bare, name), getattr(grid, name)), name
-    assert torch.equal(bare.trans.A, grid.trans.A) and torch.equal(bare.trans.t, grid.trans.t)
-    every = treg.register_locations(bare_ctx, *args)
-    assert torch.equal(every.selected, treg.register_locations(S["tctx"], *args).selected)
+    args = (S["tctx"], _t(S["queries"]), S["tcfg"], tload_svm(), S["plan"])
+    staged = treg.register_locations_staged(*args)
+    every = treg.register_locations(*args)
 
+    def refuse(*_):
+        raise AssertionError("a grid was baked")
 
-def test_context_without_grids_above_the_voxel_gate(monkeypatch):
-    """`assemble_pair_context` bakes no grid for a map above the gate, and
-    such a context serves."""
-    _, tctx = tp.small_contexts()
-    _, tcfg = tp.small_configs()
-    monkeypatch.setattr(treg, "FUSED_GRID_MAX_VOXELS", 1000)
-    ctx = treg.assemble_pair_context(
-        tctx.moving_features, tctx.fixed_features, tctx.moving_descriptors,
-        tctx.fixed_descriptors, tctx.moving_vor, tctx.fixed_vor)
-    assert ctx.fixed_grid is None and ctx.moving_grid is None
-    from lrr_tpu_torch.sampling import draw_sampling_plan
-
-    queries = _t(tp.small_queries())
-    plan = draw_sampling_plan(torch.Generator().manual_seed(0), len(queries), tcfg,
-                              ctx.moving_features.capacity, ctx.fixed_features.capacity)
-    out = treg.register_locations_staged(ctx, queries, tcfg, tload_svm(), plan)
-    want = treg.register_locations_staged(tctx, queries, tcfg, tload_svm(), plan)
-    assert bool((out.selected >= 0).all()) and torch.equal(out.selected, want.selected)
+    monkeypatch.setattr(ticp, "bake_target_grid", refuse)
+    for want, got in ((staged, treg.register_locations_staged(*args)),
+                      (every, treg.register_locations(*args))):
+        for name in ("selected", "verified", "probability", "measurements", "covar", "rank"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(got.trans.A, want.trans.A) and torch.equal(got.trans.t, want.trans.t)

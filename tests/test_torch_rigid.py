@@ -218,10 +218,10 @@ def test_estimate_ls_rigid_step_matches(small):
     src_m = ticp._pack_source(draws.scores_m, ticp._pack_features(tctx.moving_features), _t(ms))
     src_f = ticp._pack_source(draws.scores_f, ticp._pack_features(tctx.fixed_features), _t(fs))
     n = torch.full((len(sel),), tcfg.initial_matches)
-    fwd = ticp._sample_matches_packed(src_m, tctx.fixed_grid, tctx.fixed_vor, tinit, n,
-                                      cap0, draws.offsets_f[:, 0])
-    bwd = ticp._sample_matches_packed(src_f, tctx.moving_grid, tctx.moving_vor,
-                                      tinit.inverse(), n, cap0, draws.offsets_b[:, 0])
+    fwd = ticp._sample_matches_packed(src_m, tctx.fixed_vor, tinit, n, cap0,
+                                      draws.offsets_f[:, 0], dst_rows=src_f.rows)
+    bwd = ticp._sample_matches_packed(src_f, tctx.moving_vor, tinit.inverse(), n, cap0,
+                                      draws.offsets_b[:, 0], dst_rows=src_m.rows)
     got, cov, _, _ = ticp._estimate_ls_rigid_packed(tinit, fwd, bwd, True, tcfg)
     for g, w in ((got.A, want.A), (got.t, want.t)):
         g, w = g.numpy(), np.asarray(w)
@@ -241,8 +241,7 @@ def test_register_candidate_refuses_unknown_model(small):
             S["tctx"].moving_features, S["tctx"].fixed_features, S["tctx"].fixed_vor,
             S["tctx"].moving_vor, tp.torch_affine(tp.stack_affines([S["inits"][0][0]])),
             S["tcfg"].estimation, None, moving_targets=S["tctx"].moving_features,
-            fixed_targets=S["tctx"].fixed_features, fixed_grid=None, moving_grid=None,
-            model="similarity")
+            fixed_targets=S["tctx"].fixed_features, model="similarity")
 
 
 @pytest.mark.parametrize("q", [0, 1])
@@ -324,8 +323,7 @@ def test_watch_candidate_is_the_production_refinement(small):
     plain = ticp.register_candidate(
         moving_roi, fixed_roi, S["tctx"].fixed_vor, S["tctx"].moving_vor, init,
         S["tcfg"].estimation, draws, moving_targets=S["tctx"].moving_features,
-        fixed_targets=S["tctx"].fixed_features, fixed_grid=S["tctx"].fixed_grid,
-        moving_grid=S["tctx"].moving_grid)
+        fixed_targets=S["tctx"].fixed_features)
     assert int(plain.iterations[0]) == int(res.iterations)
     np.testing.assert_allclose(plain.trans.A[0].numpy(), res.trans.A.numpy(), rtol=1e-5, atol=1e-6)
 

@@ -1,7 +1,8 @@
 """The ICP's match sampler on the CPU: `kernels.sample_matches` (kernel K5's
 wrapper) takes its plain version there, the plain version gives the bits
-and the layout of the row-gather formulation it replaced, and K5's counters
-move as the other kernels' do.  K5 itself runs only on the card
+and the layout of the row-gather formulation it replaced, through the bare
+map the rows of the baked NN-row grid, and K5's counters move as the other
+kernels' do.  K5 itself runs only on the card
 (tests/test_torch_gpu.py)."""
 
 import math
@@ -24,7 +25,7 @@ def case():
     """Six lanes on the small context's moving source and fixed target:
     random lane masks (one lane empty, one with a single feature), offsets
     up to 2^62, transforms near the identity, one mapping far outside the
-    map (every voxel clamped), and the target's baked grid and bare map."""
+    map (every voxel clamped), and the target's rows."""
     ctx = load_pair_context(SMALL + ".npz", device="cpu")
     g = torch.Generator().manual_seed(19)
     fs = ctx.moving_features
@@ -49,7 +50,8 @@ def case():
 
 def _row_gather_reference(src, grid, vor, trans, number, cap, offset, dst_rows, p0, m):
     """The sampler as it was written before K5: [L, m, 8] row gathers and
-    component-major views of them."""
+    component-major views of them; the target row from `grid` (a baked
+    NN-row grid) or, for None, from the map and `dst_rows`."""
     pos = torch.arange(p0, p0 + m)
     idx = icp._window(src.order, src.valid_count, offset, pos)
     rows = src.rows[idx]
@@ -72,23 +74,26 @@ def _row_gather_reference(src, grid, vor, trans, number, cap, offset, dst_rows, 
                 weight=ok.to(rows.dtype), mask=ok)
 
 
-@pytest.mark.parametrize("path", ["grid", "map"])
+@pytest.mark.parametrize("oracle", ["grid", "map"])
 @pytest.mark.parametrize("cap,ranks,rank", [(1024, 1, 0), (640, 1, 0), (300, 3, 1), (1000, 3, 2)])
-def test_sampler_gives_the_row_gathers_bits(case, path, cap, ranks, rank):
+def test_sampler_gives_the_row_gathers_bits(case, oracle, cap, ranks, rank):
     """`_sample_matches_packed` (through `kernels.sample_matches`, the plain
     version on the CPU) against the row-gather formulation, bit for bit in
-    every field, for the whole window and a mesh rank's block (p0 > 0; the
-    last rank's window padded past the capacity, and past every lane's valid
-    count, so nothing of it is kept); the fields are views of [L, m, 8] rows,
-    as the row gathers' were, so the sums over the matches after the sampler
-    keep their order."""
+    every field, with the target rows gathered from the map and the rows or
+    from `icp.bake_target_grid`'s grid at the same voxel ids, for the whole
+    window and a mesh rank's block (p0 > 0; the last rank's window padded
+    past the capacity, and past every lane's valid count, so nothing of it
+    is kept); the fields are views of [L, m, 8] rows, as the row gathers'
+    were, so the sums over the matches after the sampler keep their order."""
     ctx, src = case["ctx"], case["src"]
-    grid = ctx.fixed_grid if path == "grid" else None
+    grid = None
+    if oracle == "grid":
+        grid = icp.bake_target_grid(ctx.fixed_features, ctx.fixed_vor)
     mx = icp._WHOLE
     if ranks > 1:
         mx = icp._MatchAxis()
         mx.n, mx.i = ranks, rank
-    pm = icp._sample_matches_packed(src, grid, ctx.fixed_vor, case["trans"], case["number"], cap,
+    pm = icp._sample_matches_packed(src, ctx.fixed_vor, case["trans"], case["number"], cap,
                                     case["offset"], dst_rows=case["dst_rows"], mx=mx)
     p0, m = mx.block(min(cap, src.order.shape[1]))
     assert (p0 > 0) == (rank > 0) and m == math.ceil(min(cap, 1024) / ranks)
@@ -105,20 +110,14 @@ def test_sampler_gives_the_row_gathers_bits(case, path, cap, ranks, rank):
 
 def test_sample_matches_on_the_cpu_is_the_plain_version(case):
     """The wrapper's CPU path is `icp.sample_matches_plain`, bit for bit, and
-    launches nothing; the grid and the bare map give the same rows (the
-    grid is the map's rows baked)."""
+    launches nothing."""
     ctx, src = case["ctx"], case["src"]
-    args = (src, ctx.fixed_grid, ctx.fixed_vor, case["trans"], case["number"], 1024,
-            case["offset"])
+    args = (src, ctx.fixed_vor, case["trans"], case["number"], 1024, case["offset"])
     before = kernels.counts()
     got = kernels.sample_matches(*args, dst_rows=case["dst_rows"], p0=0, m=1024)
     assert kernels.counts() == before
     want = icp.sample_matches_plain(*args, dst_rows=case["dst_rows"], p0=0, m=1024)
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    no_grid = kernels.sample_matches(*args[:1], None, *args[2:], dst_rows=case["dst_rows"],
-                                     p0=0, m=1024)
-    for g, w in zip(no_grid, want):
         assert torch.equal(g, w)
     s, d, weight, ok = got
     assert s.shape == d.shape == (6, 1024, 8) and weight.shape == ok.shape == (6, 1024)
@@ -133,17 +132,17 @@ def test_sample_shapes_survive_the_counter_round_trip():
     before = kernels.counts()
     assert len(before) == 6 and before[5] == {}
     kernels.LAUNCHES["sample_matches"] += 4
-    kernels.SAMPLE_SHAPES[(512, 2048, "grid")] = 4
-    kernels.SAMPLE_SHAPES[(8, 8000, "map")] = 1
+    kernels.SAMPLE_SHAPES[(512, 2048)] = 4
+    kernels.SAMPLE_SHAPES[(8, 8000)] = 1
     kernels.LAUNCHES["sample_matches"] += 1
     delta = kernels.counts_since(before)
     assert delta == ({"sample_matches": 5}, {}, {}, {}, {},
-                     {(512, 2048, "grid"): 4, (8, 8000, "map"): 1})
+                     {(512, 2048): 4, (8, 8000): 1})
     kernels.add_counts(delta, -1)
     assert kernels.counts() == before
     kernels.add_counts(delta, 3)
     assert kernels.LAUNCHES["sample_matches"] == 15
-    assert kernels.SAMPLE_SHAPES == {(512, 2048, "grid"): 12, (8, 8000, "map"): 3}
+    assert kernels.SAMPLE_SHAPES == {(512, 2048): 12, (8, 8000): 3}
     kernels.reset_launch_counts()
     assert kernels.counts()[5] == {} and kernels.LAUNCHES["sample_matches"] == 0
 
@@ -151,8 +150,8 @@ def test_sample_shapes_survive_the_counter_round_trip():
 def test_sample_matches_bound_counts_each_byte_once():
     """K5's least time: 77 bytes a window position (its permutation entry
     read, two rows, weight and mask written), the source table and each
-    distinct target row once, at the streaming peak; the target rows priced
-    at a slower random-row rate cost more."""
+    distinct target read (map sector or feature row) once, at the streaming
+    peak; the target reads priced at a slower random-row rate cost more."""
     from lrr_tpu_torch.utils import sol
 
     ms, by = sol.sample_matches_bound_ms(512, 2048, 65536, 300_000)

@@ -21,6 +21,7 @@ from lrr_tpu.matching import generate_candidates as jgen
 from lrr_tpu.matching import initial_transforms as jinit
 from lrr_tpu.pipeline.registration import register_locations_staged as jstaged
 from lrr_tpu.verify import load_default_verifier as jload_svm
+from lrr_tpu_torch.estimation.icp import bake_target_grid
 from lrr_tpu_torch.matching.indexing import generate_candidates as tgen
 from lrr_tpu_torch.matching.indexing import initial_transforms as tinit
 from lrr_tpu_torch.models.affine import Affine3D
@@ -78,9 +79,11 @@ def test_load_pair_context_matches_lrr_tpu():
     np.testing.assert_array_equal(tp.np_(tctx.nn_table[0])[live], np.asarray(jctx.nn_table[0])[live])
     np.testing.assert_allclose(tp.np_(tctx.nn_table[1])[live], np.asarray(jctx.nn_table[1])[live],
                                rtol=1e-4)
-    # grid rows hold the unit projector direction: equal up to an ulp
-    np.testing.assert_allclose(tp.np_(tctx.moving_grid), np.asarray(jctx.moving_grid),
-                               rtol=1e-6, atol=1e-6)
+    # the rows the map lookup gives, baked, against lrr_tpu's grid: they
+    # hold the unit projector direction, so equal up to an ulp
+    np.testing.assert_allclose(
+        tp.np_(bake_target_grid(tctx.moving_features, tctx.moving_vor)),
+        np.asarray(jctx.moving_grid), rtol=1e-6, atol=1e-6)
 
 
 def test_candidates_and_initial_transforms_match():

@@ -116,7 +116,7 @@ def test_inputs_are_lrr_tpus_draws(reference):
 
 @pytest.mark.parametrize("i", [0, 1])
 def test_one_iteration_matches_lrr_tpus_lane_iter(reference, i):
-    """Every lane's estimate from the same windows and grids within the ICP's
+    """Every lane's estimate from the same windows and matches within the ICP's
     one-iteration tolerance (normwise 1e-4 of the largest parameter, the
     uncentred 12x12 solve in float32 in both packages), and the stepped
     transform, which moves 1e-3 of the way to it, to 1e-6."""

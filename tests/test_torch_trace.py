@@ -269,8 +269,8 @@ def test_stage1_spans_nest_under_prepare_and_segment():
     for n in ("stage1.features", "stage1.keypoints", "stage1.descriptors", "stage1.voronoi"):
         assert sorted(s.attrs["volume"] for s in names[n]) == ["fixed", "moving"]
         assert {s.parent for s in names[n]} == {prep.id}
-    for n in ("stage1.nn_table", "stage1.grids"):
-        assert [s.parent for s in names[n]] == [prep.id]
+    assert [s.parent for s in names["stage1.nn_table"]] == [prep.id]
+    assert "stage1.grids" not in names  # no NN-row grid is baked
     assert sorted(s.attrs["volume"] for s in names["stage1.watershed"]) == ["fixed", "moving"]
     assert {s.parent for s in names["stage1.watershed"]} == {seg.id}
     assert [s.parent for s in names["stage1.regions"]] == [seg.id]

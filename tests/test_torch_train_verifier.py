@@ -312,9 +312,9 @@ def test_prepare_and_segment_equal_the_scripts_sequence():
     descriptors, which `prepare_pair` computes under jit (measured: 6e-8,
     and the NN table's distances 2.7e-7; its indices equal).  The port has
     no jit: its `prepare_pair` + `segment_pair` give its own functions
-    called in the script's order bit for bit (the grids are baked either
-    way: the maps lie under the voxel gate), so `train_default` calls those two."""
-    from lrr_tpu_torch.estimation.icp import VoronoiGrid, bake_target_grid
+    called in the script's order bit for bit, so `train_default` calls those
+    two."""
+    from lrr_tpu_torch.estimation.icp import VoronoiGrid
     from lrr_tpu_torch.features.extract import detect_features, extract_keypoints
     from lrr_tpu_torch.matching.indexing import descriptor_nn_table
     from lrr_tpu_torch.ops.descriptors import compute_descriptors
@@ -350,8 +350,7 @@ def test_prepare_and_segment_equal_the_scripts_sequence():
         treg.PairContext(
             moving_features=fs_m, fixed_features=fs_f, moving_descriptors=ds_m,
             fixed_descriptors=ds_f, moving_vor=mv, fixed_vor=fv,
-            nn_table=descriptor_nn_table(ds_f, ds_m),
-            fixed_grid=bake_target_grid(fs_f, fv), moving_grid=bake_target_grid(fs_m, mv)),
+            nn_table=descriptor_nn_table(ds_f, ds_m)),
         Volume(watershed_segmentation(moving.data), moving.origin, moving.spacing),
         Volume(watershed_segmentation(fixed.data), fixed.origin, fixed.spacing))
     for a, b in zip(torch.utils._pytree.tree_leaves(dataclasses.asdict(got)),

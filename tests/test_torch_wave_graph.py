@@ -63,7 +63,7 @@ def _refine(S, callback=None):
         moving, fixed, ctx.fixed_vor, ctx.moving_vor, init, cfg.estimation,
         S["plan"].select(lanes, cands).icp(),
         moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
-        fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid, progress_callback=callback,
+        progress_callback=callback,
     )
 
 
@@ -123,7 +123,6 @@ def test_wave_steps_equal_the_refinement_and_its_measurements(small):
     res = icp.register_candidate(
         moving, fixed, ctx.fixed_vor, ctx.moving_vor, init, cfg.estimation, lane_plan.icp(),
         moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
-        fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid,
     )
     meas = registration._measure(ctx, res, moving, fixed, mlo, flo, cfg, lane_plan)
     want = registration._pack_wave(res, meas, predict_probability(svm, scale_measurements(meas)))

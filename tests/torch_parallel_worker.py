@@ -245,8 +245,7 @@ def icp_lanes(ctx, cfg, inp, mesh):
     plan = _plan(inp, "icp.plan.")
     moving = dataclasses.replace(ctx.moving_features, mask=_t(inp["icp.m_sel"]))
     fixed = dataclasses.replace(ctx.fixed_features, mask=_t(inp["icp.f_sel"]))
-    kw = dict(moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features,
-              fixed_grid=ctx.fixed_grid, moving_grid=ctx.moving_grid, mesh=mesh)
+    kw = dict(moving_targets=ctx.moving_features, fixed_targets=ctx.fixed_features, mesh=mesh)
     res = register_candidate(moving, fixed, ctx.fixed_vor, ctx.moving_vor, init, cfg.estimation,
                              plan.icp(), **kw)
     cov = backward_covariance(res, moving, fixed, ctx.fixed_vor, ctx.moving_vor, cfg.estimation,

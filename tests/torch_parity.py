@@ -386,8 +386,8 @@ def assert_equal_or_tie(got, want, pts, origin, spacing):
 
 def torch_context(jctx):
     """lrr_tpu PairContext -> the port's, on the CPU: lrr_tpu's sets, maps
-    and region ids; the derived state (K2's table, the grids) rebuilt by the
-    port's `assemble_pair_context` from them."""
+    and region ids; the derived state (K2's table) rebuilt by the port's
+    `assemble_pair_context` from them."""
     from lrr_tpu_torch.estimation.icp import VoronoiGrid
     from lrr_tpu_torch.pipeline.registration import assemble_pair_context
 
