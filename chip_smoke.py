@@ -15,7 +15,13 @@ Phases, one line each; any failure raises and exits non-zero:
               K5 (the ICP's match sampler) against its plain version, bit
               for bit, at copd512's wave shapes (512 lanes at 1,024 / 2,048
               / 4,096 / 8,000 matches) through copd512's map, with times
-              and bound;
+              and bound; K6 (the ICP's robust weights and weighted errors)
+              against its plain versions at 16 / 64 / 512 lanes, each of
+              those capacities, rows of 8 and 16 floats, and 12,000 /
+              11,000 matches (global scratch): frame, weights and errors
+              within their tolerances, weights and MAD scales bit for bit
+              from the kernel's own scales and frame, times cold and warm
+              beside the plain chain's, and the share of its bound;
   4. slice    the committed bench pair context (bench.py's 64^3 workload)
               is loaded onto the card and `register_locations_staged` serves
               its 64 queries: one warm-up and three timed runs, acceptance
@@ -80,7 +86,8 @@ Phases, one line each; any failure raises and exits non-zero:
               map shape and feature count a path launched it at that phase
               6 did not hold, on features made for the shape; K5 bit for
               bit at every (lanes, matches) a path launched it
-              at that phase 3 did not hold, on inputs made for the shape.
+              at that phase 3 did not hold, on inputs made for the shape;
+              K6 likewise at every (lanes, M_f, M_b).
  12. estimate  (printed before phase 11, while phase 6's pair is held) the
               estimate family on the card: `lrr_tpu_torch.cli.main(["estimate",
               ...])` for `icp` and the four CDC methods on phase 5's feature
@@ -147,7 +154,9 @@ Phases, one line each; any failure raises and exits non-zero:
               L 1 / 8 / 16 / 20 / 24 / 32 / 64, n 6 at L 1 / 8 / 24 / 64), with
               times, bound and the library call.  Each captured bucket's
               prologue, chunk and epilogue graphs record 2, 2 x
-              ITERATIONS_PER_CHECK and 2 K5 launches, and in one eager bench
+              ITERATIONS_PER_CHECK and 2 K5 launches and 0,
+              ITERATIONS_PER_CHECK and 2 K6 weights launches, K6's weights
+              launch as often as K1 over the phase, and in one eager bench
               run every sampler call is one K5 launch.
 Phase 7 prints, for each query whose best refined candidate lies under 1 mm
 but verified nothing, that candidate's 8 measurements beside the verifier's
@@ -164,6 +173,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import hashlib
 import json
 import math
@@ -243,15 +253,15 @@ class Timer:
 
 
 def note_path_shapes(path: str, delta: tuple | None = None) -> None:
-    """Fold the shapes `path` launched K3, K4 and K5 at (a `kernels.counts()`-
-    shaped tuple: a `counts_since` delta or a rank's; by default the
-    counters as they stand) into PINV_PATH_SHAPES, VORONOI_PATH_SHAPES and
-    SAMPLE_PATH_SHAPES."""
+    """Fold the shapes `path` launched K3, K4, K5 and K6 at (a
+    `kernels.counts()`-shaped tuple: a `counts_since` delta or a rank's; by
+    default the counters as they stand) into PINV_PATH_SHAPES,
+    VORONOI_PATH_SHAPES, SAMPLE_PATH_SHAPES and ROBUST_PATH_SHAPES."""
     from lrr_tpu_torch.ops import kernels
 
     delta = kernels.counts() if delta is None else delta
     for logged, into in ((delta[3], PINV_PATH_SHAPES), (delta[4], VORONOI_PATH_SHAPES),
-                         (delta[5], SAMPLE_PATH_SHAPES)):
+                         (delta[5], SAMPLE_PATH_SHAPES), (delta[6], ROBUST_PATH_SHAPES)):
         for shape, n in logged.items():
             by_path = into.setdefault(tuple(shape), {})
             by_path[path] = by_path.get(path, 0) + n
@@ -860,6 +870,285 @@ def check_k5(rng, dev, timer) -> dict:
     out["gather_gb_s"] = gather
     del inputs
     return out
+
+
+K6_EDGE_LANES = 6  # lanes 0-5 of `k6_inputs` hold the order statistic's edge cases
+# K6 at the ICP's shapes: wave buckets of 16, 64 and 512 lanes, each capacity
+# of copd512's schedule, the sampler's rows (stride 8) and the statistics
+# sample's (stride 16)
+K6_SHAPES = [(L, m, stride) for L in (16, 64, 512) for m in K5_CAPS for stride in (8, 16)]
+# K6 measured against its plain version, by "LxM_fxM_b_s<stride>" (`measure_k6`)
+K6_MEASURED: dict[str, dict] = {}
+# K6's launches on every path, {(L, M_f, M_b): {path: launches}} (`kernels.ROBUST_SHAPES`)
+ROBUST_PATH_SHAPES: dict[tuple[int, int, int], dict[str, int]] = {}
+
+
+def k6_key(L: int, m_f: int, m_b: int, stride: int) -> str:
+    return f"{L}x{m_f}x{m_b}_s{stride}"
+
+
+def k6_inputs(rng, L: int, m_f: int, m_b: int, stride: int, dev):
+    """(fwd, bwd, trans, inv, falloff) for K6 on `dev`: each direction's
+    matches as the ICP hands them over, `icp.PackedMatches` views of [L, M,
+    stride] source and target rows (stride 8: the sampler's rows; 16: the
+    statistics sample's).  Sources in a 50 mm box about the lane's centre
+    (forward) or its image (backward), targets at the source mapped through
+    the lane's transform (a rotation of up to 4 degrees about z, 2 % noise
+    on A, a shift of up to 3 mm) or its inverse plus 0.8 mm of noise, a
+    tenth of them up to 15 mm further; strengths 0.5-400 (products past the
+    90,000 cap), every tag, about 60 % of the matches in the mask.  Where L
+    >= K6_EDGE_LANES, lanes 0-5 are the order statistic's edge cases: no
+    match in the mask (n = 0), one, two, every strength equal (ties at the
+    order statistic), targets at 1e20 with the corner tag (every residual
+    overflows: every weight zero after Beaton-Tukey), the mask's second
+    half off (a masked tail).  Drawn on `dev` from a generator seeded by
+    `rng`."""
+    from lrr_tpu_torch.config import EstimationConfig
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.models.affine import Affine3D
+
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 62)))
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    ang = u(L, lo=-0.07, hi=0.07)
+    A = torch.zeros((L, 3, 3), device=dev)
+    A[:, 0, 0], A[:, 0, 1] = torch.cos(ang), -torch.sin(ang)
+    A[:, 1, 0], A[:, 1, 1] = torch.sin(ang), torch.cos(ang)
+    A[:, 2, 2] = 1.0
+    A = A + 0.02 * normal(L, 3, 3)
+    center = u(L, 3, lo=50.0, hi=250.0)
+    trans = Affine3D(A=A, t=center + u(L, 3, lo=-3.0, hi=3.0), center=center)
+    inv = trans.inverse()
+
+    def rows(points, M):
+        r = normal(L, M, stride)
+        d = normal(L, M, 3)
+        r[..., 0:3] = points
+        r[..., 3] = u(L, M, lo=0.5, hi=400.0)
+        r[..., 4:7] = d / d.norm(dim=-1, keepdim=True)
+        r[..., 7] = torch.randint(0, 4, (L, M), generator=gen, device=dev).float()
+        return r
+
+    def direction(tr, base, M):
+        x = base[:, None, :] + u(L, M, 3, lo=-25.0, hi=25.0)
+        y = tr.apply(x) + 0.8 * normal(L, M, 3)
+        y = torch.where((u(L, M) < 0.1)[..., None], y + u(L, M, 3, lo=-15.0, hi=15.0), y)
+        src, dst = rows(x, M), rows(y, M)
+        mask = (src[..., 7] > 0.5) & (dst[..., 7] > 0.5) & (u(L, M) < 0.9)
+        if L >= K6_EDGE_LANES:
+            mask[0:3] = False
+            mask[1, M // 3] = True
+            mask[2, 1] = mask[2, M - 2] = True
+            src[3, :, 3] = dst[3, :, 3] = 30.0
+            dst[4, :, 0:3] = 1e20
+            dst[4, :, 7] = 1.0
+            mask[5, M // 2:] = False
+        s, d = src.permute(0, 2, 1), dst.permute(0, 2, 1)
+        return icp.PackedMatches(
+            fxyz=s[:, 0:3], fstr=s[:, 3], txyz=d[:, 0:3], tstr=d[:, 3], tdir=d[:, 4:7],
+            ttag=d[:, 7], fdir=s[:, 4:7], ftag=s[:, 7], weight=mask.float(), mask=mask)
+
+    return (direction(trans, center, m_f), direction(inv, trans.t, m_b), trans, inv,
+            EstimationConfig().spatial_falloff)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal values, NaN where the other has NaN (of any payload)."""
+    nan = torch.isnan(a)
+    return a.shape == b.shape and torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0.0, a), torch.where(nan, 0.0, b))
+
+
+def k6_from_stats(fwd, bwd, trans, inv, falloff, frame, scales):
+    """Each direction's weights, strength MAD and spatial MAD recomputed by
+    the plain chain's operations from the lane statistics K6 reported (its
+    RMS scales and frame): where those are the kernel's, every per-match
+    value and every order statistic is the plain version's bits.  Returns
+    ([w_f, w_b], [[mad_g, mad_v] forward, backward])."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.ops import robust
+
+    cm, cf, rm, rf = frame
+    weights, mads = [], []
+    for k, (pm, tr, c, r) in enumerate(((fwd, trans, cf, rf), (bwd, inv, cm, rm))):
+        r2 = icp._residual2_packed(tr, pm)
+        s2 = (scales[:, k, 0] * scales[:, k, 0])[:, None]
+        w = torch.where(pm.mask, robust.weight_bt(r2 / s2) / s2, torch.zeros_like(r2))
+        gw = torch.clamp(pm.fstr * pm.tstr, max=90000.0)
+        nz = pm.mask & (w != 0.0)
+        mad_g = icp._mad_scale_dof(gw, nz)
+        w = torch.where(nz, w * gw, w) / torch.clamp(mad_g, min=1e-30)[:, None]
+        q = (pm.txyz - c[:, :, None]) / r[:, None, None]
+        sw = 1.0 / (1.0 + falloff * (q[:, 0] ** 2 + q[:, 1] ** 2 + q[:, 2] ** 2))
+        mad_v = icp._mad_scale_dof(sw, pm.mask)
+        w = w * sw / torch.clamp(mad_v, min=1e-30)[:, None]
+        weights.append(torch.where(w >= icp.WEIGHT_FLOOR, w, torch.zeros_like(w)))
+        mads.append([mad_g, mad_v])
+    return weights, mads
+
+
+K6_FRAME_TOL = 1e-6  # x the lane's largest frame entry: sums of up to 8,000 float32 values
+# in another order (a radius about a far centre can lose every digit to it)
+K6_WEIGHT_TOL = 1e-5  # x the lane's largest weight; relative for the weighted errors
+
+
+def k6_against_plain(fwd, bwd, trans, inv, falloff) -> dict:
+    """K6 (both entry points) against its plain versions on one set of
+    inputs; raises AssertionError on a mismatch.  Two launches give the
+    same bits; the frame (cm, cf, rm, rf) and the RMS scales within
+    K6_FRAME_TOL of the plain chain's; from the kernel's own RMS scales and
+    frame, the plain chain's operations give the kernel's weights and both
+    MAD scales bit for bit; the weights within K6_WEIGHT_TOL of the lane's
+    largest but where the scales' last bits move a match across Beaton-
+    Tukey's cut (such a match within K6_WEIGHT_TOL of it, its lane left out
+    of the comparison, at most one lane in 50) or the weight floor (the
+    other side within K6_WEIGHT_TOL of it); the weighted errors within
+    K6_WEIGHT_TOL.  Its launches are taken back from the counters: they
+    are not a path's."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.ops import kernels, robust
+    from lrr_tpu_torch.pipeline.wave_graph import first_difference
+
+    before = kernels.counts()
+    L = fwd.mask.shape[0]
+    key = k6_key(L, fwd.mask.shape[1], bwd.mask.shape[1], fwd.fxyz.stride(-1))
+    scales = torch.empty((L, 2, 3), dtype=torch.float32, device=fwd.mask.device)
+    got = kernels.robust_weights(fwd, bwd, trans, inv, falloff, scales=scales)
+    again = kernels.robust_weights(fwd, bwd, trans, inv, falloff)
+    want = icp.robust_weights_plain(fwd, bwd, trans, inv, falloff)
+    if first_difference(got, again) is not None:
+        raise AssertionError(f"K6 {key}: two launches differ in {first_difference(got, again)}")
+    w_f, w_b, cm, cf, rm, rf = got
+    rec = {"frame_err": 0.0, "scale_err": 0.0, "weight_err": 0.0, "error_rel_err": 0.0,
+           "threshold_lanes": 0, "floor_flips": 0}
+    # the lane statistics, sums in another order: the frame and the RMS scales
+    frame_g = torch.cat([cm, cf, rm[:, None], rf[:, None]], 1)
+    frame_w = torch.cat([want[2], want[3], want[4][:, None], want[5][:, None]], 1)
+    err = float(((frame_g - frame_w).abs().max(1).values
+                 / (frame_w.abs().max(1).values + 1e-30)).max())
+    rec["frame_err"] = err
+    if not err <= K6_FRAME_TOL:
+        raise AssertionError(f"K6 {key}: the frame off by {err} of the lane's largest entry")
+    # every per-match value and both order statistics, from the kernel's own
+    # statistics: the plain chain's operations give its bits
+    weights, mads = k6_from_stats(fwd, bwd, trans, inv, falloff, got[2:], scales)
+    for k, name in enumerate(("w_f", "w_b")):
+        if not torch.equal(weights[k], got[k]):
+            raise AssertionError(f"K6 {key}: {name} differs from the plain chain's operations "
+                                 "at the kernel's own scales and frame")
+        for j, mad in enumerate(("strength", "spatial")):
+            if not same_bits(mads[k][j], scales[:, k, 1 + j]):
+                raise AssertionError(f"K6 {key}: the {mad} MAD of {name[-1]} differs")
+    # against the plain chain: the same weights, but where the statistics'
+    # last bits move a match across a threshold, as any other order of the
+    # sums may: Beaton-Tukey's cut at r2 / s^2 = 16 (the strength MAD of that
+    # lane may then read the neighbouring element) or the weight floor
+    for k, (name, pm, tr) in enumerate((("w_f", fwd, trans), ("w_b", bwd, inv))):
+        r2 = icp._residual2_packed(tr, pm)
+        n = pm.mask.to(r2.dtype).sum(-1)
+        s_p = torch.clamp(torch.sqrt(torch.where(pm.mask, r2, torch.zeros_like(r2)).sum(-1)
+                                     / torch.clamp(n, min=1)), min=icp.SCALE_FLOOR)
+        s_k = scales[:, k, 0]
+        finite = torch.isfinite(s_p)
+        if not torch.equal(finite, torch.isfinite(s_k)):
+            raise AssertionError(f"K6 {key}: the RMS scales of {name} differ in which are finite")
+        err = float(((s_k - s_p).abs() / s_p)[finite].max()) if bool(finite.any()) else 0.0
+        rec["scale_err"] = max(rec["scale_err"], err)
+        if not err <= K6_FRAME_TOL:
+            raise AssertionError(f"K6 {key}: the RMS scale of {name} off by {err} (relative)")
+        nz = []
+        for sc in (s_k, s_p):
+            s2 = (sc * sc)[:, None]
+            w = torch.where(pm.mask, robust.weight_bt(r2 / s2) / s2, torch.zeros_like(r2))
+            nz.append(pm.mask & (w != 0.0))
+        flip = nz[0] ^ nz[1]
+        u_p = r2 / (s_p * s_p)[:, None]
+        if bool((flip & ((u_p - 16.0).abs() > 16.0 * K6_WEIGHT_TOL)).any()):
+            raise AssertionError(f"K6 {key}: {name}'s Beaton-Tukey cut moved away from r2/s^2=16")
+        moved = flip.any(-1)
+        rec["threshold_lanes"] += int(moved.sum())
+        g, w = got[k], want[k]
+        floored = (g == 0) != (w == 0)
+        if bool((floored & (torch.maximum(g, w) > icp.WEIGHT_FLOOR * (1 + K6_WEIGHT_TOL))).any()):
+            raise AssertionError(f"K6 {key}: {name} floored away from the weight floor")
+        rec["floor_flips"] += int(floored.sum())
+        diff = torch.where(floored, torch.zeros_like(g), (g - w).abs())
+        err = (diff.max(1).values / (w.abs().max(1).values + 1e-30))[~moved]
+        err = float(err.max()) if err.numel() else 0.0
+        rec["weight_err"] = max(rec["weight_err"], err)
+        if not err <= K6_WEIGHT_TOL:
+            raise AssertionError(f"K6 {key}: {name} off by {err} of the lane's largest")
+    if rec["threshold_lanes"] > max(1, L // 50):
+        raise AssertionError(f"K6 {key}: {rec['threshold_lanes']} lanes moved a match across "
+                             "Beaton-Tukey's cut")
+
+    new_f = dataclasses.replace(fwd, weight=w_f)
+    new_b = dataclasses.replace(bwd, weight=w_b)
+    err_k = kernels.weighted_error(new_f, new_b, trans, inv)
+    err_again = kernels.weighted_error(new_f, new_b, trans, inv)
+    err_p = (icp._weighted_error_packed(trans, new_f), icp._weighted_error_packed(inv, new_b))
+    if first_difference(err_k, err_again) is not None:
+        raise AssertionError(f"K6 {key}: two weighted-error launches differ")
+    for name, g, w in zip(("forward", "backward"), err_k, err_p):
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"K6 {key}: the {name} weighted error's NaN differ")
+        ok = ~torch.isnan(w)
+        err = float(((g - w).abs() / (w.abs() + 1e-30))[ok].max()) if bool(ok.any()) else 0.0
+        rec["error_rel_err"] = max(rec["error_rel_err"], err)
+        if not err <= K6_WEIGHT_TOL:
+            raise AssertionError(f"K6 {key}: the {name} weighted error off by {err} (relative)")
+    kernels.add_counts(kernels.counts_since(before), -1)
+    rec["scales"] = scales
+    return rec
+
+
+def measure_k6(timer, rng, dev, L: int, m_f: int, m_b: int, stride: int) -> dict:
+    """K6 against its plain versions (`k6_against_plain`) at one shape, then
+    the times of both entry points (cold and warm) beside the plain
+    chain's, and the weights' share of `sol.robust_bound_ms`."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.ops import kernels
+    from lrr_tpu_torch.utils import sol
+
+    fwd, bwd, trans, inv, falloff = k6_inputs(rng, L, m_f, m_b, stride, dev)
+    before = kernels.counts()
+    rec = k6_against_plain(fwd, bwd, trans, inv, falloff)
+    del rec["scales"]
+    new_f = dataclasses.replace(fwd, weight=fwd.weight.contiguous())
+    new_b = dataclasses.replace(bwd, weight=bwd.weight.contiguous())
+
+    def weights():
+        return kernels.robust_weights(fwd, bwd, trans, inv, falloff)
+
+    def error():
+        return kernels.weighted_error(new_f, new_b, trans, inv)
+
+    bound, by = sol.robust_bound_ms(L, m_f, m_b, stride)
+    ms = timer.ms(weights)
+    rec.update(
+        L=L, M_f=m_f, M_b=m_b, stride=stride, ms=ms, ms_warm=timer.ms(weights, cold=False),
+        plain_ms=timer.ms(lambda: icp.robust_weights_plain(fwd, bwd, trans, inv, falloff),
+                          reps=5),
+        bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
+        error_ms=timer.ms(error), error_ms_warm=timer.ms(error, cold=False),
+        error_plain_ms=timer.ms(lambda: (icp._weighted_error_packed(trans, new_f),
+                                         icp._weighted_error_packed(inv, new_b)), reps=5),
+        error_bound_ms=sol.weighted_error_bound_ms(L, m_f, m_b, stride)[0])
+    kernels.add_counts(kernels.counts_since(before), -1)
+    K6_MEASURED[k6_key(L, m_f, m_b, stride)] = rec
+    return rec
+
+
+def check_k6(rng, dev, timer) -> dict:
+    """K6 at every shape of K6_SHAPES, and past one block's shared memory
+    (12,000 and 11,000 matches: the arrays in global scratch)."""
+    shapes = [(L, m, m, stride) for L, m, stride in K6_SHAPES] + [(16, 12000, 11000, 8)]
+    return {k6_key(*shape): measure_k6(timer, rng, dev, *shape) for shape in shapes}
 
 
 def run_stage1_reference(card: str, timer):
@@ -2197,6 +2486,7 @@ def parallel_rank(spec_path: str) -> None:
     pinv_shapes: dict[str, int] = {}
     voronoi_shapes: dict[str, int] = {}
     sample_shapes: dict[str, int] = {}
+    robust_shapes: dict[str, int] = {}
 
     def part(name: str, fn):
         """Run one part with the counts set to 0 just before it and read just
@@ -2223,6 +2513,9 @@ def parallel_rank(spec_path: str) -> None:
         for shape, n in kernels.SAMPLE_SHAPES.items():
             key = "x".join(map(str, shape))
             sample_shapes[key] = sample_shapes.get(key, 0) + n
+        for shape, n in kernels.ROBUST_SHAPES.items():
+            key = "x".join(map(str, shape))
+            robust_shapes[key] = robust_shapes.get(key, 0) + n
         return out
 
     torch.cuda.reset_peak_memory_stats()
@@ -2370,7 +2663,7 @@ def parallel_rank(spec_path: str) -> None:
 
     rec.update(seconds=seconds, launches=launches, k1_shapes=k1_shapes, k2_shapes=k2_shapes,
                pinv_shapes=pinv_shapes, voronoi_shapes=voronoi_shapes,
-               sample_shapes=sample_shapes,
+               sample_shapes=sample_shapes, robust_shapes=robust_shapes,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, problems=problems)
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(rec, f)
@@ -2444,7 +2737,7 @@ def run_parallel(seed: int, card: str, digests: dict, served: dict, batch: dict,
     for rec in ranks:
         note_path_shapes(f"parallel_rank{rec['rank']}", ({}, {}, {}, *(
             {tuple(int(v) for v in k.split("x")): n for k, n in rec[key].items()}
-            for key in ("pinv_shapes", "voronoi_shapes", "sample_shapes"))))
+            for key in ("pinv_shapes", "voronoi_shapes", "sample_shapes", "robust_shapes"))))
     launches = {name: sum(part[name] for rec in ranks for part in rec["launches"].values())
                 for name in ranks[0]["launches"]["serve"]}
     return launches, shapes("k1_shapes"), shapes("k2_shapes")
@@ -2907,27 +3200,36 @@ def device_busy(wall_fn) -> dict:
             "device_kernels": len(spans)}
 
 
-def k5_graph_launches(problems: list, label: str) -> dict:
-    """K5's launches recorded by each part of each bucket the last served
-    context captured: two a MUSE iteration in the prologue, two an
+def graph_launches(problems: list, label: str) -> dict:
+    """K5's and K6's launches recorded by each part of each bucket the last
+    served context captured: K5 two a MUSE iteration in the prologue, two an
     iteration in each chunk (2 x ITERATIONS_PER_CHECK a replay), two for
-    the backward covariance in the epilogue; a part off that is a problem."""
+    the backward covariance in the epilogue; K6's weights none in the
+    prologue (the MUSE iteration keeps the plain chain), one an iteration in
+    each chunk, two in the epilogue (the final statistics and the backward
+    covariance).  A part off that is a problem."""
     from lrr_tpu_torch.estimation import icp
     from lrr_tpu_torch.pipeline import wave_graph
 
+    per_iteration = {"sample_matches": 2, "robust_weights": 1}
+    prologue = {"sample_matches": 2, "robust_weights": 0}
     out = {}
     for graphs in wave_graph._CACHE["graphs"].values():
         for bucket, b in sorted(graphs.buckets.items()):
-            got = {"prologue": b.prologue.launches[0].get("sample_matches", 0),
-                   "chunks": [g.launches[0].get("sample_matches", 0) for g in b.chunks],
-                   "epilogue": b.epilogue.launches[0].get("sample_matches", 0)}
-            want = {"prologue": 2, "chunks": [2 * icp.ITERATIONS_PER_CHECK] * len(b.chunks),
-                    "epilogue": 2}
-            if got != want:
-                problems.append(f"{label} bucket {bucket}: K5 launches {got}, want {want}")
-            out[str(bucket)] = got
+            rec = {}
+            for name in per_iteration:
+                got = {"prologue": b.prologue.launches[0].get(name, 0),
+                       "chunks": [g.launches[0].get(name, 0) for g in b.chunks],
+                       "epilogue": b.epilogue.launches[0].get(name, 0)}
+                want = {"prologue": prologue[name],
+                        "chunks": [per_iteration[name] * icp.ITERATIONS_PER_CHECK]
+                        * len(b.chunks), "epilogue": 2}
+                if got != want:
+                    problems.append(f"{label} bucket {bucket}: {name} launches {got}, want {want}")
+                rec[name] = got
+            out[str(bucket)] = rec
     if not out:
-        problems.append(f"{label}: no captured bucket to read K5's launches from")
+        problems.append(f"{label}: no captured bucket to read K5's and K6's launches from")
     return out
 
 
@@ -2967,7 +3269,7 @@ def run_wave_graphs(seed: int, card: str, served_ref, ref_cfg, timer):
                                   ctx.fixed_features.capacity, dev)
 
     bench, g_out, e_out = serve_both_paths(ctx, q, cfg, svm, bench_plan)
-    bench["k5_launches_by_part"] = k5_graph_launches(problems, "bench")
+    bench["launches_by_part"] = graph_launches(problems, "bench")
     ref = meta["lrr_tpu_reference"]
     cap = max(1.0, 1.5 * ref["median_gt_error_mm"])
     for path, out in (("graph", g_out), ("eager", e_out)):
@@ -2987,7 +3289,7 @@ def run_wave_graphs(seed: int, card: str, served_ref, ref_cfg, timer):
                                   ctx_r.fixed_features.capacity, dev)
 
     reference, g_ref, e_ref = serve_both_paths(ctx_r, q_r, ref_cfg, svm, ref_plan)
-    reference["k5_launches_by_part"] = k5_graph_launches(problems, "reference")
+    reference["launches_by_part"] = graph_launches(problems, "reference")
     for path, out in (("graph", g_ref), ("eager", e_ref)):
         acc = reference[f"{path}_acceptance"] = acceptance_stats(out, queries_r, true_r)
         verified = reference[f"{path}_verified"] = int((out.selected >= 0).sum())
@@ -2997,9 +3299,13 @@ def run_wave_graphs(seed: int, card: str, served_ref, ref_cfg, timer):
     launches = dict(kernels.LAUNCHES)
     k1_shapes, pinv_shapes = dict(kernels.K1_SHAPES), dict(kernels.PINV_SHAPES)
     note_path_shapes("wave_graphs")
-    for name in ("normal_equations", "knn", "pinv_sym", "sample_matches"):  # no stage 1 (K4)
+    for name in ("normal_equations", "knn", "pinv_sym", "sample_matches", "robust_weights",
+                 "weighted_error"):  # no stage 1 (K4)
         if launches[name] <= 0:
             problems.append(f"kernel {name} was never launched on the path")
+    if launches["robust_weights"] != launches["normal_equations"]:
+        problems.append(f"K6's weights launched {launches['robust_weights']} times, K1 "
+                        f"{launches['normal_equations']}: a served RMS weighting missed K6")
     for label, rec in (("bench", bench), ("reference", reference)):
         if not rec["graph_equal_eager"]:
             problems.append(f"{label}: the graph runs differ from the eager runs")
@@ -3091,8 +3397,9 @@ def main() -> None:
     k1 = check_k1(rng, dev, timer)
     k2 = check_k2(rng, dev, timer)
     k5 = check_k5(rng, dev, timer)
+    k6 = check_k6(rng, dev, timer)
     phase("kernels", card=card, launch_floor_ms=floor_ms, normal_equations=k1, knn=k2,
-          sample_matches=k5)
+          sample_matches=k5, robust_weights=k6)
 
     launches4, shapes4 = run_slice(args.seed, card)
     (launches5, shapes5), bench = run_stage1_bench(args.seed, card)
@@ -3182,8 +3489,14 @@ def main() -> None:
         if k5_key(L, m) not in K5_MEASURED:
             k5_added[k5_key(L, m)] = measure_k5(
                 timer, k5_inputs(rng, L, m, (64, 64, 64), dev, box_mm=40.0), m, None)
+    # K6 against its plain versions at every (L, M_f, M_b) a path gave it
+    # that phase 3 did not hold, on the sampler's rows
+    k6_added = {}
+    for L, m_f, m_b in sorted(ROBUST_PATH_SHAPES):
+        if not any(k6_key(L, m_f, m_b, stride) in K6_MEASURED for stride in (8, 16)):
+            k6_added[k6_key(L, m_f, m_b, 8)] = measure_k6(timer, rng, dev, L, m_f, m_b, 8)
     phase("kernels_path_shapes", card=card, normal_equations=added, knn=k2_added,
-          pinv_sym=k3_added, voronoi=k4_added, sample_matches=k5_added,
+          pinv_sym=k3_added, voronoi=k4_added, sample_matches=k5_added, robust_weights=k6_added,
           launches={k1_key(*shape, True): n for shape, n in sorted(path_shapes.items())},
           knn_launches={k2_key(*shape): n for shape, n in sorted(k2_path_shapes.items())},
           pinv_sym_launches={f"{L}x{n}": by for (L, n), by in sorted(PINV_PATH_SHAPES.items())},
@@ -3191,6 +3504,8 @@ def main() -> None:
                             for shape, by in sorted(VORONOI_PATH_SHAPES.items())},
           sample_matches_launches={k5_key(*shape): by
                                    for shape, by in sorted(SAMPLE_PATH_SHAPES.items())},
+          robust_weights_launches={"x".join(map(str, shape)): by
+                                   for shape, by in sorted(ROBUST_PATH_SHAPES.items())},
           pinv_sym_unchecked=unchecked)
     if unchecked:
         raise AssertionError(f"kernels_path_shapes: K3 unchecked at {unchecked}")
@@ -3201,6 +3516,7 @@ def main() -> None:
     k3m = k3["bench_wave_64x12"]
     k4m = next(rec for rec in K4_MEASURED.values() if tuple(rec["shape"]) == COPD512_MAP)
     k5m = K5_MEASURED[k5_key(512, 2048)]
+    k6m = K6_MEASURED[k6_key(512, 2048, 2048, 8)]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": "normal_equations", "route": "cuda",
@@ -3264,6 +3580,23 @@ def main() -> None:
                     for k in ("ms", "plain_ms", "bound_ms", "share_of_bound")},
                  "launches": sum(by.values()), "launches_by_path": by}
              for shape, by in sorted(SAMPLE_PATH_SHAPES.items())}},
+        {"name": "robust_weights", "route": "cuda",
+         "source": "lrr_tpu_torch/csrc/robust_weights.cu", "replaces": None,
+         "note": "no Pallas counterpart: lrr_tpu leaves the ICP's robust weighting to XLA; "
+                 "the port's plain versions are estimation/icp.py::robust_weights_plain and "
+                 "_weighted_error_packed, ~440 eager launches an iteration",
+         "launches": launches["robust_weights"], "weighted_error_launches":
+             launches["weighted_error"],
+         **{k: k6m[k] for k in ("ms", "ms_warm", "plain_ms", "bound_ms", "bound_by",
+                                "share_of_bound", "error_ms", "error_plain_ms",
+                                "error_bound_ms", "frame_err", "weight_err")},
+         "shape": k6_key(512, 2048, 2048, 8) + " (a copd512 wave's second level)",
+         "other_path_shapes": {
+             key: {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "share_of_bound",
+                                       "error_ms")}
+             for key, rec in sorted(K6_MEASURED.items())},
+         "launches_by_shape": {"x".join(map(str, shape)): by
+                               for shape, by in sorted(ROBUST_PATH_SHAPES.items())}},
     ], "launch_floor_ms": floor_ms, "launches_by_path": by_path}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ permutation, nearest neighbour by the voxel's feature index in the target's
 bare Voronoi index map, then that feature's packed row (on the card both
 directions' sampling is kernel K5); robust scale
 (MUSE on iteration 0, RMS after), Beaton-Tukey weights, strength and
-spatial weights with MAD normalisation, weight floor; one
+spatial weights with MAD normalisation, weight floor (after iteration 0,
+kernel K6 on the card, which also computes the weighted errors); one
 12x12 normal-equation system for the forward parameters from both
 directions (kernel K1, which also normalises the coordinates and reads
 the projector coefficients off the row tag), pseudo-inverse solve;
@@ -396,16 +397,16 @@ def _replace(pm: PackedMatches, weight: torch.Tensor) -> PackedMatches:
 
 
 def _scale_and_bt_weights_packed(
-    trans: Affine3D, pm: PackedMatches, use_muse: bool, cfg: EstimationConfig,
+    trans: Affine3D, pm: PackedMatches, muse: tuple[float, float] | None,
     mx: _MatchAxis = _WHOLE,
 ) -> PackedMatches:
+    """Beaton-Tukey weights at the MUSE scale (`muse` = its (min, max)
+    inlier fractions) or, for None, the RMS scale."""
     r2 = _residual2_packed(trans, pm)
     msk = pm.mask
     zero = torch.zeros_like(r2)
-    if use_muse:
-        scale = robust.muse_scale(
-            *mx.gather(torch.sqrt(r2), msk), cfg.muse_min_frac, cfg.muse_max_frac
-        )
+    if muse is not None:
+        scale = robust.muse_scale(*mx.gather(torch.sqrt(r2), msk), *muse)
     else:
         r2_sum, count = mx.sums(torch.where(msk, r2, zero), msk.to(r2.dtype))
         scale = torch.sqrt(r2_sum / torch.clamp(count, min=1))
@@ -554,13 +555,19 @@ def _masked_mean_rows(x: torch.Tensor, mask: torch.Tensor,
     return total / torch.clamp(n, min=1)[:, None]
 
 
-def _weighted_matches_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationConfig,
-                             mx: _MatchAxis = _WHOLE):
-    """The shared robust-weighting pipeline of estimate_LS (symmetric
-    .txx:698-728).  Returns the weighted match sets and the normalisation
-    frame (cm, cf [L, 3], rm, rf [L])."""
-    fwd = _scale_and_bt_weights_packed(trans, fwd, use_muse, cfg, mx)
-    bwd = _scale_and_bt_weights_packed(trans.inverse(), bwd, use_muse, cfg, mx)
+def robust_weights_plain(fwd: PackedMatches, bwd: PackedMatches, trans: Affine3D,
+                         inv: Affine3D, falloff: float, *,
+                         muse: tuple[float, float] | None = None, mx: _MatchAxis = _WHOLE):
+    """The robust-weighting pipeline of estimate_LS (symmetric .txx:698-728)
+    as PyTorch ops: `fwd` under `trans`, `bwd` under `inv` (its inverse),
+    the MUSE scale with `muse` (its inlier fractions) or else the RMS
+    scale, Beaton-Tukey, strength and spatial weights with MAD
+    normalisation, the weight floor.  Returns the weights (w_f, w_b) and the
+    normalisation frame (cm, cf [L, 3], rm, rf [L]).  With the RMS scale and
+    the match axis whole it is kernel K6's plain version
+    (`kernels.robust_weights`, which the CPU takes)."""
+    fwd = _scale_and_bt_weights_packed(trans, fwd, muse, mx)
+    bwd = _scale_and_bt_weights_packed(inv, bwd, muse, mx)
 
     cm = _masked_mean_rows(fwd.fxyz, fwd.mask, mx)
     cf = _masked_mean_rows(fwd.txyz, fwd.mask, mx)
@@ -587,12 +594,31 @@ def _weighted_matches_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationCon
 
     fwd = _weight_by_strength_packed(fwd, mx)
     bwd = _weight_by_strength_packed(bwd, mx)
-    fwd = _weight_spatially_packed(norm_f(fwd.txyz), fwd, cfg.spatial_falloff, mx)
-    bwd = _weight_spatially_packed(norm_m(bwd.txyz), bwd, cfg.spatial_falloff, mx)
+    fwd = _weight_spatially_packed(norm_f(fwd.txyz), fwd, falloff, mx)
+    bwd = _weight_spatially_packed(norm_m(bwd.txyz), bwd, falloff, mx)
 
     zero = torch.zeros_like(fwd.weight)
     w_f = torch.where(fwd.weight >= WEIGHT_FLOOR, fwd.weight, zero)
     w_b = torch.where(bwd.weight >= WEIGHT_FLOOR, bwd.weight, torch.zeros_like(bwd.weight))
+    return w_f, w_b, cm, cf, rm, rf
+
+
+def _weighted_matches_packed(trans, fwd, bwd, use_muse: bool, cfg: EstimationConfig,
+                             mx: _MatchAxis = _WHOLE):
+    """The shared robust-weighting pipeline of estimate_LS: the weighted
+    match sets and the normalisation frame (cm, cf [L, 3], rm, rf [L]).
+    With the RMS scale and the match axis whole, one K6 launch on the card
+    (`kernels.robust_weights`); the MUSE iteration, whose scale reads the
+    whole sorted row, and a split match axis, whose statistics gather
+    across ranks, run the plain chain."""
+    inv = trans.inverse()
+    if use_muse or mx.n > 1:
+        muse = (cfg.muse_min_frac, cfg.muse_max_frac) if use_muse else None
+        w_f, w_b, cm, cf, rm, rf = robust_weights_plain(
+            fwd, bwd, trans, inv, cfg.spatial_falloff, muse=muse, mx=mx)
+    else:
+        w_f, w_b, cm, cf, rm, rf = kernels.robust_weights(fwd, bwd, trans, inv,
+                                                          cfg.spatial_falloff)
     return _replace(fwd, w_f), _replace(bwd, w_b), cm, cf, rm, rf
 
 
@@ -791,8 +817,12 @@ class Refinement:
             cap, draws.offsets_b.gather(1, it)[:, 0], dst_rows=self.src_m.rows, mx=mx,
         )
         new_trans, cov_w, fwd_w, bwd_w = self.estimate_ls(c.trans, fwd, bwd, use_muse, cfg, mx)
-        we_after = _weighted_error_packed(new_trans, fwd_w, mx)
-        we_bwd = _weighted_error_packed(new_trans.inverse(), bwd_w, mx)
+        if mx.n > 1:
+            we_after = _weighted_error_packed(new_trans, fwd_w, mx)
+            we_bwd = _weighted_error_packed(new_trans.inverse(), bwd_w, mx)
+        else:  # one K6 launch on the card
+            we_after, we_bwd = kernels.weighted_error(fwd_w, bwd_w, new_trans,
+                                                      new_trans.inverse())
 
         curr_diff = we_after - c.weighted_error
         rate = curr_diff / torch.where(

@@ -19,13 +19,18 @@
      iteration (no Pallas counterpart: lrr_tpu samples with XLA gathers; its
      plain version is estimation/icp.py::sample_matches_plain); source
      csrc/sample_matches.cu.
+  K6 `robust_weights` and `weighted_error` — the ICP's robust weighting of
+     both directions' matches and its weighted errors after the solve (no
+     Pallas counterpart: lrr_tpu leaves the chain to XLA; its plain versions
+     are estimation/icp.py::robust_weights_plain and
+     `_weighted_error_packed`); source csrc/robust_weights.cu.
 
 Each wrapper takes its plain PyTorch version only for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises.  `LAUNCHES` counts kernel
 launches (never plain-version calls) so a run can show that its path went
 through the kernels; `K1_SHAPES` and `K2_SHAPES` log which shapes they were
 launched at, `PINV_SHAPES` K3's, `VORONOI_SHAPES` K4's, `SAMPLE_SHAPES`
-K5's.  These are Python counters: a replayed CUDA graph moves them through
+K5's, `ROBUST_SHAPES` K6's weights.  These are Python counters: a replayed CUDA graph moves them through
 `add_counts` (pipeline/wave_graph.py).
 """
 
@@ -39,12 +44,14 @@ from lrr_tpu_torch.ops import native
 
 KMAX = 128  # largest k the k-NN kernel keeps (the TPU kernel's lane width)
 
-LAUNCHES = {"normal_equations": 0, "knn": 0, "pinv_sym": 0, "voronoi": 0, "sample_matches": 0}
+LAUNCHES = {"normal_equations": 0, "knn": 0, "pinv_sym": 0, "voronoi": 0, "sample_matches": 0,
+            "robust_weights": 0, "weighted_error": 0}
 K1_SHAPES: dict[tuple[int, int, int], int] = {}  # (L, M_f, M_b) -> launches
 K2_SHAPES: dict[tuple[int, int, int, int], int] = {}  # (Q, N, D, k) -> launches
 PINV_SHAPES: dict[tuple[int, int], int] = {}  # (L, n) -> launches
 VORONOI_SHAPES: dict[tuple[int, int, int, int], int] = {}  # (D, H, W, N) -> launches
 SAMPLE_SHAPES: dict[tuple[int, int], int] = {}  # (L, m) -> launches
+ROBUST_SHAPES: dict[tuple[int, int, int], int] = {}  # (L, M_f, M_b) -> weights launches
 PINV_MAX_N = 12  # the largest matrix K3 takes
 
 
@@ -56,12 +63,13 @@ def reset_launch_counts() -> None:
 
 
 def _counters() -> tuple[dict, ...]:
-    return LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES, VORONOI_SHAPES, SAMPLE_SHAPES
+    return (LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES, VORONOI_SHAPES, SAMPLE_SHAPES,
+            ROBUST_SHAPES)
 
 
 def counts() -> tuple[dict, ...]:
     """A copy of every counter: (LAUNCHES, K1_SHAPES, K2_SHAPES, PINV_SHAPES,
-    VORONOI_SHAPES, SAMPLE_SHAPES)."""
+    VORONOI_SHAPES, SAMPLE_SHAPES, ROBUST_SHAPES)."""
     return tuple(dict(c) for c in _counters())
 
 
@@ -486,3 +494,157 @@ def sample_matches(src, vor, trans, number, cap: int, offset, *, dst_rows, p0: i
         LAUNCHES["sample_matches"] += 1
         SAMPLE_SHAPES[(L, m)] = SAMPLE_SHAPES.get((L, m), 0) + 1
     return rows[0], rows[1], weight, mask
+
+
+# ---------------------------------------------------------------------------
+# K6: the ICP's robust weights and weighted errors
+# ---------------------------------------------------------------------------
+
+
+def _robust_side(name: str, pm, L: int, dev) -> tuple[list[int], list[int]]:
+    """K6's pointers (source row, target row, mask) and strides (source
+    lane and match, target lane and match, mask lane) of one direction's
+    `icp.PackedMatches`: its fields must be views of two row tables, the
+    source row's (x, y, z, strength) at columns 0-3 and the target row's
+    (x, y, z, strength, direction, tag) at columns 0-7, each row 16-byte
+    aligned (the rows of K5 or of the statistics sample), and its mask bool
+    and contiguous along the matches."""
+    M = pm.mask.shape[-1]
+    fields = {"fxyz": (L, 3, M), "fstr": (L, M), "txyz": (L, 3, M), "tstr": (L, M),
+              "tdir": (L, 3, M), "ttag": (L, M), "mask": (L, M)}
+    for field, shape in fields.items():
+        t = getattr(pm, field)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {field} shape {tuple(t.shape)}, want {shape}")
+    if M < 1:
+        raise ValueError(f"{name}: no matches")
+    _check_cuda(name, torch.float32, dev, pm.fxyz, pm.fstr, pm.txyz, pm.tstr, pm.tdir, pm.ttag,
+                contiguous=False)
+    _check_cuda(name, torch.bool, dev, pm.mask, contiguous=False)
+    sl, one, sm = pm.fxyz.stride()
+    dl, one_d, dm = pm.txyz.stride()
+    views = ((pm.fstr, pm.fxyz, 12, (sl, sm)), (pm.tstr, pm.txyz, 12, (dl, dm)),
+             (pm.tdir, pm.txyz, 16, (dl, 1, dm)), (pm.ttag, pm.txyz, 28, (dl, dm)))
+    rows = one == 1 and one_d == 1 and all(
+        t.data_ptr() == base.data_ptr() + offset and t.stride() == strides
+        for t, base, offset, strides in views)
+    aligned = all(v % 4 == 0 for v in (sl, sm, dl, dm)) and sm >= 4 and dm >= 8 and \
+        pm.fxyz.data_ptr() % 16 == 0 and pm.txyz.data_ptr() % 16 == 0
+    if not (rows and aligned):
+        raise ValueError(f"{name}: the matches must be views of 16-byte aligned rows "
+                         f"(source strides {pm.fxyz.stride()}, target {pm.txyz.stride()})")
+    if M > 1 and pm.mask.stride(-1) != 1:
+        raise ValueError(f"{name}: the mask must be contiguous along the matches")
+    return [pm.fxyz.data_ptr(), pm.txyz.data_ptr(), pm.mask.data_ptr()], \
+        [sl, sm, dl, dm, pm.mask.stride(0)]
+
+
+def _robust_transform(name: str, trans, L: int, dev) -> tuple[list[int], list[int]]:
+    """Pointers and strides of an `Affine3D` of L lanes (any strides)."""
+    for t, shape in ((trans.A, (L, 3, 3)), (trans.t, (L, 3)), (trans.center, (L, 3))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: transform shape {tuple(t.shape)}, want {shape}")
+    _check_cuda(name, torch.float32, dev, trans.A, trans.t, trans.center, contiguous=False)
+    return [trans.A.data_ptr(), trans.t.data_ptr(), trans.center.data_ptr()], \
+        [*trans.A.stride(), *trans.t.stride(), *trans.center.stride()]
+
+
+def robust_weights(fwd, bwd, trans, inv, falloff: float, scales: torch.Tensor | None = None):
+    """K6's weights.  The ICP's RMS-scale robust weighting of both
+    directions' matches (`icp.PackedMatches` `fwd` under the `Affine3D`
+    `trans`, `bwd` under `inv`, its inverse): Beaton-Tukey, strength and
+    spatial weights with their MAD scales, the weight floor.  Returns (w_f
+    [L, M_f], w_b [L, M_b], cm [L, 3], cf [L, 3], rm [L], rf [L]) as
+    `icp.robust_weights_plain`, its plain version, which the CPU takes.  On
+    the card the matches are views of the sampler's rows (`_robust_side`),
+    float32, with no host read; with `scales` (float32 [L, 2, 3], contiguous;
+    not written on the CPU) the kernel also writes each direction's RMS
+    scale, strength MAD and spatial MAD."""
+    dev = fwd.mask.device
+    if dev.type == "cpu":
+        from lrr_tpu_torch.estimation import icp
+
+        return icp.robust_weights_plain(fwd, bwd, trans, inv, falloff)
+    if dev.type != "cuda":
+        raise ValueError(f"robust_weights: unsupported device {dev}")
+    L = fwd.mask.shape[0]
+    if L > 65535:
+        raise ValueError(f"robust_weights: {L} lanes")
+    counts, outs, pointers, strides = [], [], [], []
+    for pm, tr in ((fwd, trans), (bwd, inv)):
+        p_rows, s_rows = _robust_side("robust_weights", pm, L, dev)
+        p_tr, s_tr = _robust_transform("robust_weights", tr, L, dev)
+        M = pm.mask.shape[-1]
+        w = torch.empty((L, M), dtype=torch.float32, device=dev)
+        pointers += [*p_rows, *p_tr, w.data_ptr()]
+        strides += [*s_rows, M, 1, *s_tr]
+        counts.append(M)
+        outs.append(w)
+    cm = torch.empty((L, 3), dtype=torch.float32, device=dev)
+    cf = torch.empty((L, 3), dtype=torch.float32, device=dev)
+    rm = torch.empty((L,), dtype=torch.float32, device=dev)
+    rf = torch.empty((L,), dtype=torch.float32, device=dev)
+    if scales is not None:
+        _check_cuda("robust_weights", torch.float32, dev, scales)
+        if tuple(scales.shape) != (L, 2, 3):
+            raise ValueError(f"robust_weights: scales {tuple(scales.shape)}, want {(L, 2, 3)}")
+    if L > 0:
+        lib = native.library()
+        n_scratch = lib.lrr_robust_scratch_floats(L, counts[0], counts[1])
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
+        pointers += [t.data_ptr() for t in (cm, cf, rm, rf)]
+        pointers += [0 if t is None else t.data_ptr() for t in (scales, scratch)]
+        native.check(
+            lib.lrr_robust_weights(
+                (ctypes.c_void_p * 20)(*pointers), (ctypes.c_longlong * 28)(*strides),
+                L, counts[0], counts[1], float(falloff),
+                torch.cuda.current_stream(dev).cuda_stream,
+            ),
+            "robust_weights",
+        )
+        LAUNCHES["robust_weights"] += 1
+        shape = (L, counts[0], counts[1])
+        ROBUST_SHAPES[shape] = ROBUST_SHAPES.get(shape, 0) + 1
+    return outs[0], outs[1], cm, cf, rm, rf
+
+
+def weighted_error(fwd, bwd, trans, inv) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's weighted errors: sum sqrt(e^T P e) w / sum w over each lane's
+    masked matches, `fwd` at the `Affine3D` `trans` and `bwd` at `inv`,
+    with the weights the matches carry.  Returns ([L], [L]) as two calls of
+    `icp._weighted_error_packed`, its plain version, which the CPU takes.
+    On the card the matches are views of the sampler's rows, as for
+    `robust_weights`; the weights float32 [L, M] of any strides."""
+    dev = fwd.mask.device
+    if dev.type == "cpu":
+        from lrr_tpu_torch.estimation import icp
+
+        return icp._weighted_error_packed(trans, fwd), icp._weighted_error_packed(inv, bwd)
+    if dev.type != "cuda":
+        raise ValueError(f"weighted_error: unsupported device {dev}")
+    L = fwd.mask.shape[0]
+    if L > 65535:
+        raise ValueError(f"weighted_error: {L} lanes")
+    counts, pointers, strides = [], [], []
+    for pm, tr in ((fwd, trans), (bwd, inv)):
+        p_rows, s_rows = _robust_side("weighted_error", pm, L, dev)
+        p_tr, s_tr = _robust_transform("weighted_error", tr, L, dev)
+        M = pm.mask.shape[-1]
+        if tuple(pm.weight.shape) != (L, M):
+            raise ValueError(f"weighted_error: weight {tuple(pm.weight.shape)}, want {(L, M)}")
+        _check_cuda("weighted_error", torch.float32, dev, pm.weight, contiguous=False)
+        pointers += [*p_rows, *p_tr, pm.weight.data_ptr()]
+        strides += [*s_rows, *pm.weight.stride(), *s_tr]
+        counts.append(M)
+    error = torch.empty((2, L), dtype=torch.float32, device=dev)
+    if L > 0:
+        native.check(
+            native.library().lrr_weighted_error(
+                (ctypes.c_void_p * 15)(*pointers, error.data_ptr()),
+                (ctypes.c_longlong * 28)(*strides), L, counts[0], counts[1],
+                torch.cuda.current_stream(dev).cuda_stream,
+            ),
+            "weighted_error",
+        )
+        LAUNCHES["weighted_error"] += 1
+    return error[0], error[1]

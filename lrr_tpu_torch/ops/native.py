@@ -55,9 +55,24 @@ _SIGNATURES = {
     # spacing, index_vol, dst_rows, src, dst, weight, mask, order_cols,
     # mask_cols, L, m, p0, cap, D, H, W, stream
     "lrr_sample_matches": [_P] * 17 + [_LL] * 2 + [_I] * 2 + [_LL] * 2 + [_I] * 3 + [_P],
+    # pointers (host array of 20), strides (host array of 28), L, M_f, M_b,
+    # spatial falloff, stream
+    "lrr_robust_weights": [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
+        _I, _I, _I, ctypes.c_float, _P,
+    ],
+    # L, M_f, M_b -> floats of global scratch K6 needs (0: shared memory)
+    "lrr_robust_scratch_floats": [_I, _I, _I],
+    # pointers (host array of 15), strides (host array of 28), L, M_f, M_b,
+    # stream
+    "lrr_weighted_error": [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong), _I, _I, _I, _P,
+    ],
     # stream: an empty kernel, for the launch floor
     "lrr_empty": [_P],
 }
+
+_RESTYPES = {"lrr_robust_scratch_floats": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -131,7 +146,7 @@ def library() -> types.SimpleNamespace:
     for name, argtypes in _SIGNATURES.items():
         fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
         setattr(fns, name, fn)
     return fns
 

@@ -31,7 +31,9 @@ loop (`torch.profiler`), tells the kernels' own distance to light from the
 host's share of the iteration.
 
 `sample_matches_bound_ms` is K5's least time by bytes over the distinct
-map sectors and target rows its windows read.
+map sectors and target rows its windows read; `robust_bound_ms` and
+`weighted_error_bound_ms` are K6's by the bytes of the match columns its
+two entry points read and write.
 
 `kernel_sol_report` gives the iteration at lrr_tpu's two wave shapes and the
 195-d descriptor nearest neighbour at 4096 x 4096 through K2, with the
@@ -136,6 +138,37 @@ def sample_matches_bound_ms(lanes: int, m: int, n_src: int, target_reads: int,
     rate = PEAK_HBM_GBS if gather_gb_s is None else gather_gb_s
     ms = (target_reads * ROW_BYTES / (rate * 1e9) + stream / (PEAK_HBM_GBS * 1e9)) * 1e3
     return ms, "bytes"
+
+
+def _row_sectors(stride: int, cols: int) -> float:
+    """The 32-byte sectors a match moves to read columns [0, cols) of its
+    row of `stride` floats (rows from a sector-aligned table), averaged over
+    the rows' offsets."""
+    return sum(len({(4 * (stride * j + c)) // 32 for c in range(cols)}) for j in range(8)) / 8
+
+
+# a match's bytes that K6 must read, in whole sectors of its two rows: the
+# source's (x, y, z, strength), the target's eight columns
+def _robust_match_bytes(stride: int) -> float:
+    return 32 * (_row_sectors(stride, 4) + _row_sectors(stride, 8))
+
+
+def robust_bound_ms(L: int, m_f: int, m_b: int, stride: int) -> tuple[float, str]:
+    """K6's weights' least time for `L` lanes of `m_f` + `m_b` matches whose
+    rows hold `stride` floats: each match's row columns
+    (`_robust_match_bytes`) and mask byte read once and its weight written
+    once; each lane's two transforms read and its frame written, at the
+    streaming peak."""
+    nbytes = L * (m_f + m_b) * (_robust_match_bytes(stride) + 1 + 4) + 4 * L * (2 * 15 + 8)
+    return nbytes / (PEAK_HBM_GBS * 1e9) * 1e3, "bytes"
+
+
+def weighted_error_bound_ms(L: int, m_f: int, m_b: int, stride: int) -> tuple[float, str]:
+    """K6's weighted errors' least time: each match's row columns, mask byte
+    and weight read once, each lane's two transforms read and two errors
+    written, at the streaming peak."""
+    nbytes = L * (m_f + m_b) * (_robust_match_bytes(stride) + 1 + 4) + 4 * L * (2 * 15 + 2)
+    return nbytes / (PEAK_HBM_GBS * 1e9) * 1e3, "bytes"
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,15 @@ and where the checkout has K5 also through `kernels.sample_matches` and its
 plain version `icp.sample_matches_plain`, with K5's bound over the distinct
 map sectors and target rows the windows read.  A checkout whose sampler
 still takes a baked [V, 8] NN-row grid is timed through the grid (`grid`,
-the path its program took) and through the bare map (`map`).  Prints one
-JSON line.
+the path its program took) and through the bare map (`map`).  The ICP's
+robust weighting is timed at `chip_smoke.K6_SHAPES` (16 / 64 / 512 lanes, each
+capacity, the sampler's rows and the statistics sample's) on
+`chip_smoke.k6_inputs`: the checkout's `_weighted_matches_packed` (RMS scale,
+as an iteration calls it) and its pair of weighted errors, eagerly and
+replayed from a CUDA graph (`graph_us`, the way a served wave runs them), and
+where the checkout has K6 also `kernels.robust_weights` /
+`kernels.weighted_error` alone and the plain versions, with K6's bounds.
+Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -69,7 +76,7 @@ def main() -> None:
         return {"cold_us": 1e3 * timer.ms(fn), "warm_us": 1e3 * timer.ms(fn, cold=False)}
 
     out = {"card": card, "root": os.path.abspath(args.root), "k1": {}, "k2": {}, "k4": {},
-           "sampler": {}}
+           "sampler": {}, "k6": {}}
     for L, M in [(64, 1024), (64, 2048), (64, 4096)]:
         fwd, bwd = cs.k1_direction(rng, L, M, dev), cs.k1_direction(rng, L, M, dev)
         frame = cs.k1_frame(rng, L, dev)
@@ -142,7 +149,66 @@ def main() -> None:
         rec["random_rows_us"] = 1e3 * sol.sample_matches_bound_ms(512, cap, 65536, reads,
                                                                   gather)[0]
         out["sampler"][f"512x{cap}"] = rec
+    del inputs, src, vor, trans, number, offset, dst_rows, modes
+    out["k6"] = time_k6(cs, kernels, timer, rng, dev, both)
     print(json.dumps(out), flush=True)
+
+
+def graphed(fn):
+    """`fn` captured once into a CUDA graph (after two warm-up calls on a
+    side stream): the replay, as a served wave runs its steps."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return g.replay
+
+
+def time_k6(cs, kernels, timer, rng, dev, both) -> dict:
+    """The ICP's robust weighting and weighted errors at `cs.K6_SHAPES`."""
+    import dataclasses
+
+    from lrr_tpu_torch.config import EstimationConfig
+    from lrr_tpu_torch.estimation import icp
+
+    cfg = EstimationConfig()
+    has_k6 = hasattr(kernels, "robust_weights")
+    out = {}
+    for L, m, stride in cs.K6_SHAPES:
+        fwd, bwd, trans, inv, falloff = cs.k6_inputs(rng, L, m, m, stride, dev)
+        fwd = dataclasses.replace(fwd, weight=fwd.weight.contiguous())
+        bwd = dataclasses.replace(bwd, weight=bwd.weight.contiguous())
+
+        def weights():
+            return icp._weighted_matches_packed(trans, fwd, bwd, False, cfg)
+
+        def errors():
+            if has_k6:
+                return kernels.weighted_error(fwd, bwd, trans, inv)
+            return icp._weighted_error_packed(trans, fwd), icp._weighted_error_packed(inv, bwd)
+
+        rec = {"path_weights": {**both(weights), "graph_us": 1e3 * timer.ms(graphed(weights))},
+               "path_errors": {**both(errors), "graph_us": 1e3 * timer.ms(graphed(errors))}}
+        if has_k6:
+            from lrr_tpu_torch.utils import sol
+
+            rec["k6_weights"] = both(lambda: kernels.robust_weights(fwd, bwd, trans, inv,
+                                                                    falloff))
+            rec["plain_weights"] = {"eager_us": 1e3 * timer.ms(
+                lambda: icp.robust_weights_plain(fwd, bwd, trans, inv, falloff), reps=5),
+                "graph_us": 1e3 * timer.ms(graphed(
+                    lambda: icp.robust_weights_plain(fwd, bwd, trans, inv, falloff)))}
+            rec["bound_us"] = 1e3 * sol.robust_bound_ms(L, m, m, stride)[0]
+            rec["error_bound_us"] = 1e3 * sol.weighted_error_bound_ms(L, m, m, stride)[0]
+            rec["share_of_bound"] = rec["bound_us"] / rec["k6_weights"]["cold_us"]
+        out[f"{L}x{m}_s{stride}"] = rec
+        del fwd, bwd
+    return out
 
 
 if __name__ == "__main__":

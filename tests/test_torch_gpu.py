@@ -7,6 +7,7 @@ neither JAX nor lrr_tpu, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import dataclasses
 import json
 import os
 
@@ -1441,4 +1442,145 @@ def test_a_copd512_sized_bucket_replays_the_eager_waves_bits(cuda):
     assert b.epilogue.launches[0]["sample_matches"] == 2
     for g in b.chunks:
         assert g.launches[0]["sample_matches"] == 2 * icp.ITERATIONS_PER_CHECK
+    wave_graph.drop()
+
+
+# ---------------------------------------------------------------------------
+# K6 (csrc/robust_weights.cu): the ICP's robust weights and weighted errors
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,M,stride", [(L, M, s) for L in (16, 64, 512)
+                                        for M in (1024, 2048, 4096, 8000) for s in (8, 16)])
+def test_robust_weights_kernel_equals_the_plain_chain(cuda, L, M, stride):
+    """K6 against `icp.robust_weights_plain` and `_weighted_error_packed` at
+    the ICP's shapes (`chip_smoke.k6_against_plain`): the frame to 1e-6
+    relative, weights to 1e-5 of the lane's largest and errors to 1e-5
+    relative; from the kernel's own scales and frame the plain chain's
+    operations give its weights and both MAD scales bit for bit; two
+    launches alike.  The edge lanes: no match (n = 0) and one give the
+    order statistic float max, an infinite scale and no weight; every
+    residual overflowing leaves no weight."""
+    cs = _chip_smoke()
+    inputs = cs.k6_inputs(np.random.default_rng(L + M + stride), L, M, M, stride, cuda)
+    before = kernels.counts()
+    rec = cs.k6_against_plain(*inputs)
+    assert kernels.counts() == before  # the check takes its launches back
+    scales = rec["scales"]
+    inf = torch.tensor(float("inf"), device=cuda)
+    for lane in (0, 1):
+        assert bool((scales[lane, :, 1:] == inf).all())
+    assert bool((scales[4, :, 0] == inf).all()) and bool((scales[4, :, 1] == inf).all())
+    w = kernels.robust_weights(*inputs)[:2]
+    for lane in (0, 1, 4):
+        assert not bool(w[0][lane].any()) and not bool(w[1][lane].any())
+    assert bool((w[0][6:] > 0).any(1).all()) and not bool(w[0][5, M // 2:].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m_f,m_b", [(3000, 7999), (12000, 11000), (10, 9)])
+def test_robust_weights_kernel_at_unequal_and_large_match_counts(cuda, m_f, m_b):
+    """Directions of different match counts; past one block's shared memory
+    (12,000 matches: the per-match arrays in global scratch); a handful of
+    matches."""
+    cs = _chip_smoke()
+    cs.k6_against_plain(*cs.k6_inputs(np.random.default_rng(m_f), 16, m_f, m_b, 8, cuda))
+
+
+@pytest.mark.gpu
+def test_a_lane_gives_the_same_bits_in_any_bucket(cuda):
+    """Lanes 0-15 of a 512-lane launch and the same lanes launched alone:
+    the same weights, frame and errors, bit for bit."""
+    from lrr_tpu_torch.pipeline.wave_graph import first_difference
+
+    cs = _chip_smoke()
+    fwd, bwd, trans, inv, falloff = cs.k6_inputs(np.random.default_rng(5), 512, 2048, 2048, 8,
+                                                 cuda)
+
+    def lanes(pm, n):
+        return type(pm)(**{f: getattr(pm, f)[:n] for f in pm.__dataclass_fields__})
+
+    big = kernels.robust_weights(fwd, bwd, trans, inv, falloff)
+    small = kernels.robust_weights(lanes(fwd, 16), lanes(bwd, 16), trans[:16], inv[:16], falloff)
+    assert first_difference(tuple(t[:16] for t in big), small) is None
+    fw, bw = (dataclasses.replace(pm, weight=w) for pm, w in ((fwd, big[0]), (bwd, big[1])))
+    err_big = kernels.weighted_error(fw, bw, trans, inv)
+    err_small = kernels.weighted_error(lanes(fw, 16), lanes(bw, 16), trans[:16], inv[:16])
+    assert first_difference(tuple(t[:16] for t in err_big), err_small) is None
+
+
+@pytest.mark.gpu
+def test_robust_weights_kernel_refuses_bad_inputs(cuda):
+    """Wrong dtype, device or shape, matches that are not views of 16-byte
+    aligned rows, a mask that is not bool, a wrong `scales`: each raises
+    before a launch."""
+    cs = _chip_smoke()
+    fwd, bwd, trans, inv, falloff = cs.k6_inputs(np.random.default_rng(6), 8, 256, 256, 8, cuda)
+    kernels.robust_weights(fwd, bwd, trans, inv, falloff)
+    kernels.weighted_error(fwd, bwd, trans, inv)
+    rep = dataclasses.replace
+    planar = rep(fwd, fxyz=fwd.fxyz.contiguous())
+    bad = [
+        (rep(fwd, mask=fwd.mask.float()), bwd, trans, inv),
+        (rep(fwd, fstr=fwd.fstr.double()), bwd, trans, inv),
+        (rep(fwd, txyz=fwd.txyz.cpu()), bwd, trans, inv),
+        (planar, bwd, trans, inv),
+        (rep(fwd, tdir=fwd.tdir.contiguous()), bwd, trans, inv),
+        (rep(fwd, fxyz=fwd.fxyz[:, :, 1:], fstr=fwd.fstr[:, 1:]), bwd, trans, inv),
+        (fwd, rep(bwd, mask=bwd.mask[:4]), trans, inv),
+        (fwd, bwd, trans[:4], inv),
+        (fwd, bwd, trans, type(inv)(inv.A.double(), inv.t, inv.center)),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            kernels.robust_weights(*args, falloff)
+        with pytest.raises(ValueError):
+            kernels.weighted_error(*args)
+    with pytest.raises(ValueError):
+        kernels.robust_weights(fwd, bwd, trans, inv, falloff,
+                               scales=torch.empty((8, 3, 2), device=cuda))
+    with pytest.raises(ValueError):
+        kernels.weighted_error(rep(fwd, weight=fwd.weight.double()), bwd, trans, inv)
+
+
+@pytest.mark.gpu
+def test_every_rms_weighting_of_a_served_wave_is_one_k6_launch(cuda, monkeypatch):
+    """Over the bench context served from graphs and eagerly, K6's weights
+    launch as often as K1 (the MUSE iteration has K1 and not K6, the final
+    statistics K6 and not K1) and its weighted errors once an iteration; a
+    bucket's prologue records no weights launch, each chunk
+    ITERATIONS_PER_CHECK, its epilogue two."""
+    from lrr_tpu_torch.estimation import icp
+    from lrr_tpu_torch.pipeline import registration, wave_graph
+
+    ctx, q, cfg, plan = _bench(cuda)
+    svm = load_default_verifier()
+    wave_graph.drop()
+    for runner in (registration._wave_runner, registration._eager_wave_runner):
+        monkeypatch.setattr(registration, "_wave_runner", runner)
+        kernels.reset_launch_counts()
+        register_locations_staged(ctx, q, cfg, svm, plan)
+        n = kernels.LAUNCHES
+        assert n["robust_weights"] == n["normal_equations"] > 0
+        assert n["weighted_error"] > 0 and sum(kernels.ROBUST_SHAPES.values()) == n["robust_weights"]
+    graphs = wave_graph.wave_graphs(ctx, cfg, svm, registration.WAVE_STEPS)
+    assert graphs.buckets
+    for b in graphs.buckets.values():
+        assert b.prologue.launches[0].get("robust_weights", 0) == 0
+        assert b.epilogue.launches[0]["robust_weights"] == 2
+        for g in b.chunks:
+            assert g.launches[0]["robust_weights"] == icp.ITERATIONS_PER_CHECK
+            assert g.launches[0]["weighted_error"] == icp.ITERATIONS_PER_CHECK
     wave_graph.drop()

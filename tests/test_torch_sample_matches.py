@@ -130,14 +130,14 @@ def test_sample_shapes_survive_the_counter_round_trip():
     back and each replay adds them."""
     kernels.reset_launch_counts()
     before = kernels.counts()
-    assert len(before) == 6 and before[5] == {}
+    assert len(before) == 7 and before[5] == {}
     kernels.LAUNCHES["sample_matches"] += 4
     kernels.SAMPLE_SHAPES[(512, 2048)] = 4
     kernels.SAMPLE_SHAPES[(8, 8000)] = 1
     kernels.LAUNCHES["sample_matches"] += 1
     delta = kernels.counts_since(before)
     assert delta == ({"sample_matches": 5}, {}, {}, {}, {},
-                     {(512, 2048): 4, (8, 8000): 1})
+                     {(512, 2048): 4, (8, 8000): 1}, {})
     kernels.add_counts(delta, -1)
     assert kernels.counts() == before
     kernels.add_counts(delta, 3)
